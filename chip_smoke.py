@@ -21,6 +21,21 @@ Phases, one line or more each:
              megastep == per-iteration, 2 partitions == 1), and a second,
              instrumented run per network for the boundary breakdown.
 
+4. flash    — the three flash-attention kernels (``src/repro_torch/csrc/
+             flash_attention.cu``: forward, dQ, dK/dV) against their plain
+             PyTorch versions on the card at the training path's shape
+             (B=8, S=2048, H=9, KV=3, hd=64, bf16, causal), a float32 shape
+             and an hd=128 shape; kernel and plain device times (CUDA-graph
+             replay) beside the bound and beside
+             ``scaled_dot_product_attention`` (forward, and forward+backward).
+5. train   — the LM slice's main path: ``repro_torch.launch.train.
+             run_training("smollm-135m", reduced=False, steps=10,
+             global_batch=8, seq_len=2048, device="cuda")`` with the flash
+             launch counts set to 0 just before and read just after; loss
+             finite and falling; then a profiled window of three steps for the
+             device's idle share, and one step with ``use_kernels="off"``
+             from the same parameters and batch, whose loss must match.
+
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every check passed.
@@ -31,8 +46,11 @@ missing.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -42,6 +60,7 @@ import torch
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 TOKENS = {"main": 4 * 4096, "serve": 32 * 4 * 4096}
 SIZES = {"TopFilter": 40000, "FIR32": 8000, "Bitonic8": 1500, "IDCT8": 1500, "ZigZag": 200}
 EXACT = {"TopFilter", "Bitonic8", "ZigZag"}
@@ -333,25 +352,316 @@ def phase_e2e(nets) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = {
+    # name: (B, S, H, KV, hd, dtype)
+    "path": (8, 2048, 9, 3, 64, torch.bfloat16),
+    "f32": (2, 512, 4, 2, 64, torch.float32),
+    "hd128": (2, 1024, 32, 8, 128, torch.bfloat16),
+}
+FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (3e-5, 2e-4)}  # (fwd, bwd)
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def reps_for(fn, budget_s: float = 0.2, most: int = 50) -> int:
+    """How many calls fill about ``budget_s`` of device time (at least 3)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(3, min(most, int(budget_s / max(time.perf_counter() - t0, 1e-6))))
+
+
+def flash_bounds(B, S, H, KV, hd, dtype) -> dict:
+    """Least time (ms) for each kernel's work: matrix FLOPs over the peak for
+    the type, or bytes (each input read once, each output written once) over
+    HBM bandwidth, whichever is larger."""
+    pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs
+    esz = torch.finfo(dtype).bits // 8
+    q_b, kv_b, row_b = B * H * S * hd * esz, B * KV * S * hd * esz, B * H * S * 4
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    work = {
+        # QK^T and PV
+        "flash_fwd": (4 * pairs * hd, 2 * q_b + 2 * kv_b + row_b),
+        # QK^T, dO.V^T, dS.K
+        "flash_bwd_dq": (6 * pairs * hd, 3 * q_b + 2 * kv_b + 2 * row_b),
+        # QK^T, dO.V^T, P^T.dO, dS^T.Q
+        "flash_bwd_dkv": (8 * pairs * hd, 2 * q_b + 4 * kv_b + 2 * row_b),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        b_ops, b_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(
+            flops=flops, bytes=nbytes, bound_ms=max(b_ops, b_bytes),
+            bound_by="operations" if b_ops >= b_bytes else "bytes",
+        )
+    return out
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
+    return bool(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol))
+
+
+def phase_flash() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    print("phase 4: flash kernels against their plain versions on the card", flush=True)
+    rows = {}
+    for shape, (B, S, H, KV, hd, dtype) in FLASH_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(len(rows))
+
+        def randn(*size):
+            return torch.randn(*size, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+        q, do = randn(B * H, S, hd), randn(B * H, S, hd)
+        k, v = randn(B * KV, S, hd), randn(B * KV, S, hd)
+        tol_f, tol_b = FLASH_TOL[dtype]
+
+        o_k, lse_k = kernel.flash_fwd_cuda(q, k, v, causal=True)
+        o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=True)
+        delta = ref.delta_of(o_p, do)
+        dq_k = kernel.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, causal=True)
+        dq_p = ref.flash_bwd_dq_ref(q, k, v, do, lse_p, delta, causal=True)
+        dk_k, dv_k = kernel.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, causal=True)
+        dk_p, dv_p = ref.flash_bwd_dkv_ref(q, k, v, do, lse_p, delta, causal=True)
+        torch.cuda.synchronize()
+        errs = {
+            "flash_fwd": max(max_err(o_k, o_p), max_err(lse_k, lse_p)),
+            "flash_bwd_dq": max_err(dq_k, dq_p),
+            "flash_bwd_dkv": max(max_err(dk_k, dk_p), max_err(dv_k, dv_p)),
+        }
+        for what, a, b, tol in (
+            ("o", o_k, o_p, tol_f), ("lse", lse_k, lse_p, tol_f), ("dq", dq_k, dq_p, tol_b),
+            ("dk", dk_k, dk_p, tol_b), ("dv", dv_k, dv_p, tol_b),
+        ):
+            check(close(a, b, tol), f"flash {shape}: kernel {what} not within {tol} of plain "
+                                    f"(max abs err {max_err(a, b):.3g})")
+        for t in (o_k, lse_k, dq_k, dk_k, dv_k):
+            check(bool(torch.isfinite(t).all()), f"flash {shape}: non-finite kernel output")
+
+        calls = {
+            "flash_fwd": (lambda: kernel.flash_fwd_cuda(q, k, v, causal=True),
+                          lambda: ref.flash_fwd_ref(q, k, v, causal=True)),
+            "flash_bwd_dq": (
+                lambda: kernel.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, causal=True),
+                lambda: ref.flash_bwd_dq_ref(q, k, v, do, lse_p, delta, causal=True)),
+            "flash_bwd_dkv": (
+                lambda: kernel.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, causal=True),
+                lambda: ref.flash_bwd_dkv_ref(q, k, v, do, lse_p, delta, causal=True)),
+        }
+        bounds = flash_bounds(B, S, H, KV, hd, dtype)
+        times = {}
+        for name, (kern, plain) in calls.items():
+            times[name] = (device_ms(kern, reps_for(kern)), device_ms(plain, reps_for(plain)))
+
+        # the library yardstick, never called by the port
+        q4, k4, v4 = q.view(B, H, S, hd), k.view(B, KV, S, hd), v.view(B, KV, S, hd)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+
+        sdpa_ms = device_ms(sdpa, reps_for(sdpa))
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+        do4 = do.view(B, H, S, hd)
+
+        def sdpa_fb():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+            torch.autograd.grad(out, (qg, kg, vg), do4)
+
+        qs = q.view(B, H, S, hd).transpose(1, 2).detach().requires_grad_(True)
+        ks = k.view(B, KV, S, hd).transpose(1, 2).detach().requires_grad_(True)
+        vs = v.view(B, KV, S, hd).transpose(1, 2).detach().requires_grad_(True)
+        dos = do4.transpose(1, 2)
+
+        def ours_fb():
+            out = flash_attention(qs, ks, vs, causal=True)
+            torch.autograd.grad(out, (qs, ks, vs), dos)
+
+        sdpa_fb_ms = call_ms(sdpa_fb, reps_for(sdpa_fb))
+        ours_fb_ms = call_ms(ours_fb, reps_for(ours_fb))
+        for name in FLASH_NAMES:
+            row = dict(
+                shape=shape, kernel=name, B=B, S=S, H=H, KV=KV, hd=hd, dtype=str(dtype),
+                max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1],
+                **bounds[name],
+                library_ms=sdpa_ms if name == "flash_fwd" else None,
+            )
+            rows[(shape, name)] = row
+            print("  " + json.dumps(row), flush=True)
+        print("  " + json.dumps(dict(
+            shape=shape, sdpa_fwd_ms=sdpa_ms, sdpa_fwd_bwd_call_ms=sdpa_fb_ms,
+            port_fwd_bwd_call_ms=ours_fb_ms,
+        )), flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: LM training, the slice's main path
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="smollm-135m", steps=10, global_batch=8, seq_len=2048)
+
+
+def flash_counts() -> dict:
+    from repro_torch.kernels.flash_attention import kernel
+
+    return {"flash_fwd": kernel.FWD_LAUNCHES, "flash_bwd_dq": kernel.DQ_LAUNCHES,
+            "flash_bwd_dkv": kernel.DKV_LAUNCHES}
+
+
+def profiled_idle_share(train_step, params, opt_state, batch, n: int = 3) -> dict:
+    """Device busy and idle share over ``n`` steps, from torch.profiler's CUDA
+    activity alone, so each kernel's time is counted once (one warm-up step
+    first)."""
+    train_step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            train_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    busy_us, flash_us, by_kernel = 0.0, {}, []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        busy_us += us
+        by_kernel.append((us, ev.count, ev.key))
+        for name in FLASH_NAMES:
+            if f"{name}_" in ev.key:  # flash_fwd_mma_kernel<64>, ...
+                flash_us[name] = flash_us.get(name, 0.0) + us
+    top = [dict(ms_per_step=us / 1e3 / n, calls_per_step=c / n, kernel=key[:90])
+           for us, c, key in sorted(by_kernel, reverse=True)[:12]]
+    return dict(
+        steps=n, seconds=secs, device_busy_ms=busy_us / 1e3,
+        idle_share=1.0 - busy_us / 1e6 / secs,
+        flash_ms={k: v / 1e3 for k, v in flash_us.items()}, top_kernels=top,
+    )
+
+
+def phase_train() -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import run_training
+    from repro_torch.model import lm
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    print("phase 5: LM training, the main path", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        kernel.FWD_LAUNCHES = kernel.DQ_LAUNCHES = kernel.DKV_LAUNCHES = 0
+        out = run_training(
+            TRAIN["arch"], reduced=False, steps=TRAIN["steps"],
+            global_batch=TRAIN["global_batch"], seq_len=TRAIN["seq_len"],
+            ckpt_dir=ckpt, log_every=1, device="cuda",
+        )
+        torch.cuda.synchronize()
+        launches = flash_counts()
+    losses = out["losses"]
+    steady = sorted(out["step_seconds"][1:])
+    step_s = steady[len(steady) // 2]
+    row = dict(
+        steps=out["steps"], losses=losses, step_seconds=out["step_seconds"],
+        median_step_s=step_s, tokens_per_s=out["tokens_per_step"] / step_s,
+        launches=launches,
+        launches_per_step={k: v / max(out["steps"], 1) for k, v in launches.items()},
+    )
+    print("  " + json.dumps(row), flush=True)
+    check(out["steps"] == TRAIN["steps"], f"train: {out['steps']} steps done")
+    check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
+    check(len(losses) >= 6 and np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"train: loss did not fall ({losses})")
+    for name, n in launches.items():
+        check(n > 0, f"train: {name} was never launched on the main path")
+
+    # one batch and one set of parameters for the profiled window and the
+    # kernel-vs-plain step
+    cfg = get_config(TRAIN["arch"])
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN["steps"])
+    params = lm.init_model(cfg, 0, device="cuda")
+    opt_state = init_opt_state(params, opt)
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+        global_batch=TRAIN["global_batch"], seed=0,
+    )).next_batch()
+    step_k = make_train_step(cfg, opt)
+    prof = profiled_idle_share(step_k, params, opt_state, batch)
+    print("  " + json.dumps({"profiled": prof}), flush=True)
+    row["profiled"] = prof
+
+    _, _, m_k = step_k(params, opt_state, batch)
+    step_o = make_train_step(dataclasses.replace(cfg, use_kernels="off"), opt)
+    _, _, m_o = step_o(params, opt_state, batch)
+    loss_k, loss_o = float(m_k["loss"]), float(m_o["loss"])
+    gn_k, gn_o = float(m_k["grad_norm"]), float(m_o["grad_norm"])
+    print(f"  one step, same params and batch: loss cuda {loss_k:.6f} off {loss_o:.6f} "
+          f"(|diff| {abs(loss_k - loss_o):.3g}); grad norm cuda {gn_k:.6f} off {gn_o:.6f}",
+          flush=True)
+    check(abs(loss_k - loss_o) <= 2e-2, "train: kernel path's loss not within 2e-2 of plain")
+    row.update(loss_cuda=loss_k, loss_off=loss_o, grad_norm_cuda=gn_k, grad_norm_off=gn_o)
+    return row
+
+
+def build_all():
+    """Build every kernel library at once: one nvcc per source, in parallel."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.stream_fused import kernel as stream
+
+    errors = []
+
+    def run(mod):
+        try:
+            mod.build()
+        except Exception as e:  # noqa: BLE001 — reported below, fails the run
+            errors.append(f"{mod.__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(m,)) for m in (stream, flash)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for mod in (stream, flash):
+        print(f"  {mod.SOURCE.name}: nvcc build {mod.BUILD_SECONDS}s", flush=True)
+        for line in mod.BUILD_LOG.strip().splitlines():
+            print(f"    {line.strip()}", flush=True)
+    if errors:
+        raise RuntimeError("kernel build failed: " + "; ".join(errors))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.apps.streams import NETWORKS
-    from repro_torch.kernels.stream_fused import kernel
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in IEEE float32
+    torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     print(f"phase 1: build; card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    kernel.build()
-    print(f"  nvcc build {kernel.BUILD_SECONDS:.2f}s", flush=True)
-    for line in kernel.BUILD_LOG.strip().splitlines():
-        print(f"  {line.strip()}", flush=True)
+    build_all()
 
     programs = {"demo": demo_program(), **network_programs(NETWORKS)}
     rows = phase_kernel(programs)
     launches = phase_e2e(NETWORKS)
+    flash_rows = phase_flash()
+    train = phase_train()
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
@@ -368,6 +678,20 @@ def main() -> int:
             ),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
+        ))
+    replaces = {
+        "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:79",
+        "flash_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:235",
+        "flash_bwd_dkv": "src/repro/kernels/flash_attention/kernel.py:255",
+    }
+    for name in FLASH_NAMES:
+        row = flash_rows[("path", name)]
+        record["kernels"].append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            replaces=replaces[name], launches=train["launches"][name],
+            max_abs_err=max(flash_rows[(s, name)]["max_abs_err"] for s in FLASH_SHAPES),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
     print(json.dumps(record))
     print(card)

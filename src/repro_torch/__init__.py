@@ -16,6 +16,10 @@ The port imports nothing of ``repro``: the framework-neutral modules are kept
 as copies (``tests/test_torch_copies.py`` pins each to its original), and
 the device path — fusion codegen, device programs, PLink, the stream kernel
 (``repro_torch.kernels.stream_fused``, CUDA C++ in ``csrc/``) — is ported.
+
+LM training of dense models runs through ``repro_torch.launch.train.
+run_training`` (device=None means cuda:0), with flash attention forward and
+backward as CUDA kernels (``repro_torch.kernels.flash_attention``).
 """
 
 from repro_torch.frontend import (

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.core.graph import ActorGraph
 from repro_torch.frontend import Network, action, actor, network
-from repro_torch.kernels.stream_fused.ref import device_const, matmul8
+from repro_torch.kernels.stream_fused.ref import device_const, matmul8, maximum, minimum
 
 
 def _lcg_source(net: Network, n: int, name: str = "source", mod: int = 100):
@@ -184,8 +184,8 @@ class CompareExchange:
     def vector_fire(self, state, ins):
         a, am = ins["IN0"]
         b, bm = ins["IN1"]
-        lo = torch.minimum(a, b)
-        hi = torch.maximum(a, b)
+        lo = minimum(a, b)
+        hi = maximum(a, b)
         if not self.ascending:
             lo, hi = hi, lo
         return state, {"OUT0": (lo, am), "OUT1": (hi, bm)}

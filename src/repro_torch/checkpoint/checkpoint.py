@@ -1,0 +1,178 @@
+"""Checkpointing: atomic, resumable, async (port of ``repro/checkpoint/
+checkpoint.py`` for trees of tensors).
+
+Layout, as the reference's:  <dir>/step_<n>/  manifest.json  +  one .npy per
+leaf (flattened key path).  Writes go to a temp dir and are renamed
+atomically; a ``latest`` marker file is updated last, so a crash mid-write
+never corrupts the restore point.  ``runtime.chaos`` sites (``ckpt:leaf``,
+``ckpt:commit``) let tests kill a save at any point.
+
+bfloat16 leaves are stored losslessly: numpy has no bfloat16, so the file
+holds the raw 16-bit patterns as ``uint16`` and the manifest records the
+logical dtype ``bfloat16``; restore reinterprets the bits.  (The reference
+widens such leaves to float32 instead.)  The reference's object-dtype leaves
+(pickled Python values of the serve recovery path) and ``load_flat`` wait for
+the StreamServe slice.
+
+Arrays are saved from host copies; ``restore`` places each leaf on the device
+and in the dtype of the matching leaf of ``like``, and keeps its
+``requires_grad``.  ``AsyncCheckpointer`` runs saves on a background thread.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import queue
+import shutil
+import threading
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.pytree import tree_flatten, tree_map, tree_paths, tree_unflatten
+from repro_torch.runtime import chaos as chaos_mod
+
+PyTree = Any
+
+
+def _to_numpy(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """(array to store, logical dtype)."""
+    t = leaf.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def save(
+    ckpt_dir, step: int, tree: PyTree, *, extra: Optional[Dict] = None,
+    keep: int = 3,
+) -> Path:
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    tmp = ckpt_dir / f".tmp_step_{step}_{os.getpid()}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
+    try:
+        manifest: Dict[str, Any] = {"step": step, "leaves": {}, "extra": extra or {}}
+        for key, leaf in tree_paths(tree):
+            chaos_mod.poke("ckpt:leaf")
+            arr, logical_dtype = _to_numpy(leaf)
+            fname = hashlib.md5(key.encode()).hexdigest()[:16] + ".npy"
+            np.save(tmp / fname, arr)
+            manifest["leaves"][key] = {
+                "file": fname,
+                "shape": list(arr.shape),
+                "dtype": logical_dtype,
+            }
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        chaos_mod.poke("ckpt:commit")
+        final = ckpt_dir / f"step_{step}"
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)
+    except BaseException:
+        # torn write: no temp litter, and ``latest`` still names the previous
+        # complete step
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    (ckpt_dir / "latest").write_text(str(step))  # updated last: commit point
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _gc(ckpt_dir: Path, keep: int) -> None:
+    steps = sorted(
+        int(p.name.split("_")[1])
+        for p in ckpt_dir.glob("step_*")
+        if p.name.split("_")[1].isdigit()
+    )
+    for s in steps[:-keep] if keep else []:
+        shutil.rmtree(ckpt_dir / f"step_{s}", ignore_errors=True)
+
+
+def latest_step(ckpt_dir) -> Optional[int]:
+    marker = Path(ckpt_dir) / "latest"
+    if not marker.exists():
+        return None
+    step = int(marker.read_text().strip())
+    if not (Path(ckpt_dir) / f"step_{step}" / "manifest.json").exists():
+        return None
+    return step
+
+
+def restore(
+    ckpt_dir, step: int, like: PyTree, *, shardings: Optional[PyTree] = None,
+) -> Tuple[PyTree, Dict]:
+    """Restore into the structure of ``like``: each leaf on the device and in
+    the dtype of ``like``'s leaf.  One card: ``shardings`` must be None."""
+    if shardings is not None:
+        raise NotImplementedError("sharded restore is not ported (ROADMAP A8, distributed)")
+    d = Path(ckpt_dir) / f"step_{step}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    out = []
+    for key, want in tree_paths(like):
+        info = manifest["leaves"].get(key)
+        assert info is not None, f"checkpoint missing leaf {key}"
+        got = _from_numpy(np.load(d / info["file"]), info["dtype"])
+        assert tuple(got.shape) == tuple(want.shape), (key, got.shape, want.shape)
+        got = got.to(device=want.device, dtype=want.dtype)
+        out.append(got.requires_grad_(want.requires_grad))
+    return tree_unflatten(tree_flatten(like)[1], out), manifest["extra"]
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: save() returns once the tree is copied to
+    the host; wait() drains pending saves.  A background save's failure is
+    re-raised on the next ``save()`` or ``wait()``."""
+
+    def __init__(self, ckpt_dir, keep: int = 3):
+        self.ckpt_dir = Path(ckpt_dir)
+        self.keep = keep
+        self._q: "queue.Queue" = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            step, tree, extra = item
+            try:
+                save(self.ckpt_dir, step, tree, extra=extra, keep=self.keep)
+            except BaseException as e:  # noqa: BLE001 — re-raised on save/wait
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def save(self, step: int, tree: PyTree, extra: Optional[Dict] = None) -> None:
+        self._raise_pending()
+        host = tree_map(lambda a: a.detach().to("cpu", copy=True), tree)
+        self._q.put((step, host, extra))
+
+    def wait(self) -> None:
+        self._q.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        self.wait()
+        self._q.put(None)
+        self._thread.join(timeout=5)

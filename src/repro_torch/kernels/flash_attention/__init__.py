@@ -1,0 +1,6 @@
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    FlashAttention,
+    flash_attention,
+    flash_bwd,
+    flash_fwd,
+)

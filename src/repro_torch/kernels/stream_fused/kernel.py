@@ -6,8 +6,7 @@ its header note says what bounds it and how the design answers that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` with
   ``--fmad=false`` into a shared library with a plain C interface under
-  ``repro_torch/build/`` (named by a hash of the source and flags, so a stale
-  build is never reused), loaded with ``ctypes``.
+  ``repro_torch/build/``, loaded with ``ctypes`` (``kernels/build.py``).
 * **Lower.**  Each ``StreamProgram`` object becomes a bytecode once per
   device: an int32 op table, a float32 parameter array and an int32 perm
   index array, uploaded once.  Registers are packed into shared-memory slots
@@ -21,33 +20,23 @@ its header note says what bounds it and how the design answers that.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
-import time
 from dataclasses import dataclass
-from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
 from repro_torch.kernels.stream_fused.ops import StreamProgram, block_unit
 
 LAUNCHES = 0
 BUILD_SECONDS: Optional[float] = None
 BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "stream_fused.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = CSRC / "stream_fused.cu"
+NVCC_FLAGS = (*COMMON_FLAGS, "--fmad=false")
 
 MAX_WIRES = 32  # csrc/stream_fused.cu MAX_WIRES
 MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
@@ -61,38 +50,14 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the stream kernel builds with the CUDA toolkit")
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per process and source) and load the kernel library."""
     global _lib, BUILD_SECONDS, BUILD_LOG
     with _lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"stream_fused_{tag}.so"
-        t0 = time.perf_counter()
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-            BUILD_LOG = proc.stderr
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib, BUILD_SECONDS, log = build_library(SOURCE, NVCC_FLAGS)
+        BUILD_LOG = log or BUILD_LOG
         fn = lib.stream_fused_launch
         fn.restype = ctypes.c_int
         p = ctypes.c_void_p
@@ -101,7 +66,6 @@ def build() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, p, ctypes.c_int, p, p,
             p,
         ]
-        BUILD_SECONDS = time.perf_counter() - t0
         _lib = lib
         return lib
 

@@ -11,7 +11,8 @@ bit, on the card.  Each op mirrors the expression the corresponding
   matmul8  8-blocks times an 8x8 basis, summed in one fixed order (below)
   axpy     a + c * x                   one MAC tap, never fused into an FMA
   const    torch.full_like             rate seed (e.g. FIR acc = 0)
-  min2/max2  torch.minimum / torch.maximum, NaN propagates
+  min2/max2  IEEE minimum / maximum (``minimum``/``maximum`` below):
+             NaN propagates, and -0 < +0 on a tie of signed zeros
   perm     x.reshape(-1, P)[:, idx]    block reorder, a gather
 
 ``matmul8`` is written as ``y_j = x_0*B[0,j] + x_1*B[1,j] + ... + x_7*B[7,j]``,
@@ -59,6 +60,20 @@ def matmul8(x: torch.Tensor, basis) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IEEE minimum: NaN propagates and ``min(+0, -0) = -0`` whichever side
+    holds which, as ``jnp.minimum`` gives and the CUDA kernel computes.
+    (``torch.minimum`` on the CPU returns the first operand on such a tie.)"""
+    tie = torch.where(torch.signbit(a), a, b)
+    return torch.where(a == b, tie, torch.minimum(a, b))
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IEEE maximum, the mirror of ``minimum``: ``max(+0, -0) = +0``."""
+    tie = torch.where(torch.signbit(a), b, a)
+    return torch.where(a == b, tie, torch.maximum(a, b))
+
+
 def apply_op(kind: str, params, ins: Sequence[torch.Tensor]) -> torch.Tensor:
     if kind == "affine":
         pre, mul, post = params
@@ -84,9 +99,9 @@ def apply_op(kind: str, params, ins: Sequence[torch.Tensor]) -> torch.Tensor:
         (v,) = params
         return torch.full_like(ins[0], v)
     if kind == "min2":
-        return torch.minimum(ins[0], ins[1])
+        return minimum(ins[0], ins[1])
     if kind == "max2":
-        return torch.maximum(ins[0], ins[1])
+        return maximum(ins[0], ins[1])
     if kind == "perm":
         (idx,) = params
         x = ins[0]

@@ -1,0 +1,129 @@
+"""GQA attention for training: the q-chunked plain path and the flash-kernel
+path (port of ``repro/model/attention.py``, one card, no sharding rules).
+
+``cfg.use_kernels`` picks the path, under the reference's condition for its
+Pallas path (no window, no cache to return):
+
+  * ``"cuda"`` — ``kernels.flash_attention.flash_attention``: the CUDA kernels
+    on CUDA tensors, their plain versions on CPU tensors;
+  * ``"off"``  — the chunked plain path: queries in chunks whose float32 score
+    block stays under a budget, each chunk recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+
+The single-token decode branch waits for the LM serving slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.model.layers import ParamDef, apply_rope, dense, rms_norm, rope_angles
+
+NEG_INF = -1e30
+KERNEL_MODES = ("off", "cuda")
+
+
+def attn_defs(cfg) -> Dict[str, ParamDef]:
+    d, H, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    defs = {
+        "wq": ParamDef((d, H * hd), ("fsdp", "tp")),
+        "wk": ParamDef((d, kv * hd), ("fsdp", "tp")),
+        "wv": ParamDef((d, kv * hd), ("fsdp", "tp")),
+        "wo": ParamDef((H * hd, d), ("tp", "fsdp")),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), init="ones", dtype="float32")
+        defs["k_norm"] = ParamDef((hd,), (None,), init="ones", dtype="float32")
+    return defs
+
+
+def _pick_q_chunk(batch: int, heads: int, seq: int, budget_bytes: int = 1 << 27) -> int:
+    """Largest power-of-two q-chunk whose float32 score block fits the budget."""
+    per_row = batch * heads * seq * 4
+    chunk = max(128, int(budget_bytes // max(per_row, 1)))
+    chunk = 1 << (chunk.bit_length() - 1)  # floor power of two
+    while seq % chunk and chunk > 1:
+        chunk //= 2
+    return max(1, min(chunk, seq))
+
+
+def _attn_block(q, k, v, rows, cols, window: int, scale: float):
+    """q: (B,Q,H,hd); k/v: (B,S,H,hd); rows (Q,), cols (S,) -> (B,Q,H,hd)."""
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+    keep = cols[None, :] <= rows[:, None]
+    if window:
+        keep &= cols[None, :] > rows[:, None] - window
+    scores = scores.masked_fill(~keep[None, None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def _project_qkv(params, x, cfg, positions):
+    B, S, _ = x.shape
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(x, params["wq"]).reshape(B, S, H, hd)
+    k = dense(x, params["wk"]).reshape(B, S, kv, hd)
+    v = dense(x, params["wv"]).reshape(B, S, kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.rmsnorm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.rmsnorm_eps)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)  # (S, hd/2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def attention(
+    params,
+    x: torch.Tensor,
+    cfg,
+    positions: torch.Tensor,
+    *,
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    write_pos: Optional[torch.Tensor] = None,
+    window: int = 0,
+    ring: bool = False,
+    return_cache: bool = False,
+):
+    """x: (B, S, d), train/prefill.  Returns (y, (k, v) if return_cache else None)."""
+    if cache is not None:
+        raise NotImplementedError(
+            "decode attention (cache given) is not ported yet: ROADMAP A8, "
+            "the LM serving slice"
+        )
+    if cfg.use_kernels not in KERNEL_MODES:
+        raise ValueError(f"use_kernels={cfg.use_kernels!r}, not one of {KERNEL_MODES}")
+    B, S, d = x.shape
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // kv
+    scale = 1.0 / math.sqrt(hd)
+
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    if cfg.use_kernels != "off" and window == 0 and not return_cache:
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+
+        out = flash_attention(q, k, v, causal=True)
+        return dense(out.reshape(B, S, H * hd), params["wo"]), None
+
+    k_full = torch.repeat_interleave(k, G, dim=2)
+    v_full = torch.repeat_interleave(v, G, dim=2)
+    cols = torch.arange(S, device=x.device)
+    q_chunk = _pick_q_chunk(B, H, S)
+
+    def chunk_attn(qc, j):
+        rows = j * q_chunk + torch.arange(q_chunk, device=x.device)
+        return _attn_block(qc, k_full, v_full, rows, cols, window, scale)
+
+    outs = [
+        checkpoint(chunk_attn, q[:, j * q_chunk:(j + 1) * q_chunk], j,
+                   use_reentrant=False, preserve_rng_state=False)
+        for j in range(S // q_chunk)
+    ]
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    y = dense(out.reshape(B, S, H * hd), params["wo"])
+    return y, ((k, v) if return_cache else None)

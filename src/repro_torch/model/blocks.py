@@ -1,0 +1,69 @@
+"""Block assembly: pre-norm attention mixer + dense SwiGLU FFN (port of
+``repro/model/blocks.py``).
+
+Only dense attention blocks are ported; the SSM mixer and the MoE FFN raise
+``NotImplementedError`` naming their ROADMAP item (A8).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import FFN_DENSE, FFN_MOE, FFN_NONE, MIXER_ATTN, BlockKind
+from repro_torch.model.attention import attention, attn_defs
+from repro_torch.model.layers import mlp_defs, norm_defs, rms_norm, swiglu
+
+
+def _check_kind(kind: BlockKind) -> None:
+    if kind.mixer != MIXER_ATTN:
+        raise NotImplementedError(
+            f"{kind.mixer} mixer blocks are not ported yet: ROADMAP A8 (model/ssm.py)"
+        )
+    if kind.ffn == FFN_MOE:
+        raise NotImplementedError(
+            "MoE FFN blocks are not ported yet: ROADMAP A8 (model/moe.py)"
+        )
+
+
+def block_defs(cfg, kind: BlockKind) -> Dict[str, Any]:
+    _check_kind(kind)
+    d = cfg.d_model
+    defs: Dict[str, Any] = {"norm_mixer": norm_defs(d), "mixer": attn_defs(cfg)}
+    if kind.ffn != FFN_NONE:
+        defs["norm_ffn"] = norm_defs(d)
+        defs["ffn"] = mlp_defs(d, cfg.d_ff)
+    return defs
+
+
+def block_fwd(
+    params,
+    x: torch.Tensor,
+    kind: BlockKind,
+    cfg,
+    positions: torch.Tensor,
+    *,
+    cache=None,
+    write_pos=None,
+    window: int = 0,
+    ring: bool = False,
+    return_cache: bool = False,
+) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+    """Returns (x, new_cache, aux); aux is empty for dense blocks."""
+    _check_kind(kind)
+    h = rms_norm(x, params["norm_mixer"]["scale"], cfg.rmsnorm_eps)
+    y, new_cache = attention(
+        params["mixer"], h, cfg, positions,
+        cache=(cache["k"], cache["v"]) if cache is not None else None,
+        write_pos=write_pos, window=window, ring=ring,
+        return_cache=return_cache or cache is not None,
+    )
+    if new_cache is not None:
+        new_cache = {"k": new_cache[0], "v": new_cache[1]}
+    x = x + y
+    if kind.ffn == FFN_DENSE:
+        h = rms_norm(x, params["norm_ffn"]["scale"], cfg.rmsnorm_eps)
+        x = x + swiglu(h, params["ffn"]["w_gate"], params["ffn"]["w_up"],
+                       params["ffn"]["w_down"])
+    return x, new_cache, {}

@@ -1,0 +1,141 @@
+"""Shared layer primitives and the parameter-definition machinery (port of
+``repro/model/layers.py``).
+
+Parameters are plain nested dicts of tensors.  Every leaf is described by a
+:class:`ParamDef` carrying its shape, its logical axis names and an init rule;
+the logical axes are kept for the sharding rules of a later slice and are not
+read on one card.
+
+Init draws from an explicit ``torch.Generator`` with the reference's rules
+(fan-in scaled normal at the def's scale, zeros, ones, the SSM rules).  The
+two frameworks give different numbers from one seed, so tests carry the
+reference's weights across with ``model/convert.py``.
+
+Not ported: the ``REPRO_BF16_DOTS`` experiment switch of ``dense``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple, Union
+
+import torch
+
+from repro_torch.paramdef import ParamDef, is_paramdef
+from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
+
+PyTree = Any
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def stack_defs(defs: PyTree, n: int) -> PyTree:
+    """Add a leading ('layers',) stacking axis of size ``n`` to every ParamDef."""
+
+    def f(d: ParamDef) -> ParamDef:
+        return dataclasses.replace(
+            d, shape=(n,) + d.shape, logical=("layers",) + d.logical
+        )
+
+    return tree_map(f, defs, is_leaf=is_paramdef)
+
+
+def init_leaf(d: ParamDef, gen: torch.Generator, default_dtype) -> torch.Tensor:
+    dtype = torch_dtype(d.dtype or default_dtype)
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype)
+    if d.init == "ssm_a":  # A_log: log of uniform [1, 16]
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32) * 15.0 + 1.0
+        return torch.log(u).to(dtype)
+    if d.init == "ssm_dt":  # dt bias: inverse-softplus of uniform [1e-3, 1e-1]
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32) * (hi - lo) + lo
+        dt = torch.exp(u)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    # fan-in scaled normal
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    scale = d.scale if d.scale else 1.0 / math.sqrt(fan_in)
+    return (torch.randn(d.shape, generator=gen, dtype=torch.float32) * scale).to(dtype)
+
+
+def init_params(defs: PyTree, seed: int = 0, default_dtype="bfloat16",
+                device: Union[str, torch.device] = "cpu") -> PyTree:
+    """Draw every leaf on the CPU from one generator seeded with ``seed``, in
+    leaf order, then move it to ``device``; leaves require grad."""
+    leaves, treedef = tree_flatten(defs, is_leaf=is_paramdef)
+    gen = torch.Generator().manual_seed(seed)
+    out = [
+        init_leaf(d, gen, default_dtype).to(device).requires_grad_(True) for d in leaves
+    ]
+    return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables computed on the fly.  positions: any shape of ints."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    inv_freq = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv_freq  # (..., half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]  # broadcast over heads
+    s = sin[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Matmul over the last axis of ``x``, result in ``x.dtype``, accumulated
+    in float32: a float32 product for float32 operands; for bfloat16 ones
+    the card's matrix product accumulates in float32 and rounds once to the
+    result type, which is the reference's f32 dot followed by the cast."""
+    if x.dtype != w.dtype:
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x, w)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = silu(dense(x, w_gate)) * dense(x, w_up)
+    return dense(h, w_down)
+
+
+def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
+    return {
+        "w_gate": ParamDef((d_model, d_ff), ("fsdp", "tp")),
+        "w_up": ParamDef((d_model, d_ff), ("fsdp", "tp")),
+        "w_down": ParamDef((d_ff, d_model), ("tp", "fsdp")),
+    }
+
+
+def norm_defs(d_model: int) -> Dict[str, ParamDef]:
+    return {"scale": ParamDef((d_model,), (None,), init="ones", dtype="float32")}

@@ -1,0 +1,108 @@
+"""AdamW with cosine schedule and global-norm clipping (port of
+``repro/optim/adamw.py``), as plain functions on trees of tensors.
+
+The update is the reference's, operation for operation, in float32: clip by
+the global norm, ``u = (m / bc1) / (sqrt(v / bc2) + eps)``, ``p -= lr * (u +
+wd * p)``, stored back in the parameter's dtype.  (``torch.optim.AdamW`` orders
+its operations otherwise.)  Moments are float32; ``keep_master=True`` adds a
+float32 master copy.  The update is functional: it returns new tensors and
+leaves its inputs as they were.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+PyTree = Any
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    keep_master: bool = False
+
+
+def lr_at(opt: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(opt.warmup_steps, 1), max=1.0)
+    frac = torch.clamp(
+        (step - opt.warmup_steps) / max(opt.total_steps - opt.warmup_steps, 1), 0, 1
+    )
+    cos = 0.5 * (1 + torch.cos(math.pi * frac))
+    return opt.lr * warm * (opt.min_lr_frac + (1 - opt.min_lr_frac) * cos)
+
+
+def init_opt_state(params: PyTree, opt: OptConfig) -> Dict[str, Any]:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    device = tree_leaves(params)[0].device
+    state = {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if opt.keep_master:
+        state["master"] = tree_map(lambda p: p.detach().float(), params)
+    return state
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(
+    params: PyTree, grads: PyTree, state: Dict[str, Any], opt: OptConfig
+) -> Tuple[PyTree, Dict[str, Any], Dict[str, torch.Tensor]]:
+    step = state["step"] + 1
+    gn = global_norm(grads)
+    scale = torch.clamp(opt.clip_norm / (gn + 1e-9), max=1.0)
+    lr = lr_at(opt, step)
+    t = step.float()
+    bc1 = 1 - torch.pow(torch.tensor(opt.b1, device=t.device), t)
+    bc2 = 1 - torch.pow(torch.tensor(opt.b2, device=t.device), t)
+
+    src = state.get("master", params)
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m = opt.b1 * m + (1 - opt.b1) * g
+        v = opt.b2 * v + (1 - opt.b2) * torch.square(g)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
+        pf = p.float()
+        pf = pf - lr * (u + opt.weight_decay * pf)
+        return pf, m, v
+
+    flat_p, treedef = tree_flatten(src)
+    flat_g = tree_leaves(grads)
+    flat_m = tree_leaves(state["m"])
+    flat_v = tree_leaves(state["v"])
+    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
+    new_f32 = tree_unflatten(treedef, [o[0] for o in out])
+    new_state = {
+        "m": tree_unflatten(treedef, [o[1] for o in out]),
+        "v": tree_unflatten(treedef, [o[2] for o in out]),
+        "step": step,
+    }
+    if opt.keep_master:
+        new_state["master"] = new_f32
+    new_params = tree_map(
+        lambda nf, p: nf.to(p.dtype).requires_grad_(p.requires_grad), new_f32, params
+    )
+    metrics = {"grad_norm": gn, "lr": lr}
+    return new_params, new_state, metrics

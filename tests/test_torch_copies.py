@@ -45,7 +45,29 @@ EDITS = {
             "    ``stream_op`` spec, else a composed torch ``vector_fire``.",
         ),
     ],
+    "configs/base.py": [
+        (
+            '(hybrid interleave, MoE routing, GQA ratios, qk-norm, frontends, ...).\n"""',
+            "(hybrid interleave, MoE routing, GQA ratios, qk-norm, frontends, ...).\n\n"
+            "Copy of ``repro/configs/base.py``.  Edit: the execution-policy field\n"
+            "``use_pallas`` (\"off\" | \"interpret\" | \"tpu\") is ``use_kernels`` here\n"
+            "(\"off\" | \"cuda\", default \"cuda\").\n\"\"\"",
+        ),
+        (
+            '    use_pallas: str = "off"  # "off" (pure jnp, used by the CPU dry-run) |\n'
+            '    #   "interpret" (Pallas kernels in interpret mode — CPU tests) |\n'
+            '    #   "tpu" (compiled kernels; wrap the step in shard_map on a real mesh)\n',
+            '    use_kernels: str = "cuda"  # "off" (plain chunked torch attention) |\n'
+            '    #   "cuda" (the hand-written CUDA kernels on CUDA tensors; their plain\n'
+            '    #   PyTorch versions on CPU tensors — the CPU tests)\n',
+        ),
+    ],
 }
+
+CONFIGS = sorted(
+    p.name for p in (SRC / "repro" / "configs").glob("*.py")
+    if p.name not in ("__init__.py", "base.py")
+)
 
 COPIES = [
     "core/__init__.py",
@@ -72,6 +94,13 @@ COPIES = [
     "observability/chrome.py",
     "observability/trace_profile.py",
     "observability/metrics.py",
+    "configs/__init__.py",
+    "configs/base.py",
+    *(f"configs/{name}" for name in CONFIGS),
+    "paramdef.py",
+    "data/pipeline.py",
+    "data/tokenizer.py",
+    "distributed/fault.py",
 ]
 
 

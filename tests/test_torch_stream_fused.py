@@ -33,6 +33,7 @@ from repro.kernels.stream_fused import StreamProgram as JStreamProgram
 from repro.kernels.stream_fused import fused_stream as jfused_stream
 from repro.kernels.stream_fused.ref import fused_stream_ref as jref
 from repro_torch.apps.streams import NETWORKS as TNETS
+from repro_torch.apps.streams import CompareExchange
 from repro_torch.kernels.stream_fused import (
     StreamOp,
     StreamProgram,
@@ -229,3 +230,34 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     # auto on CPU tensors takes the plain version
     (out,) = fused_stream([x], tp)
     assert out.shape == (64,)
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+TIE_A = np.array([0.0, -0.0, 0.0, -0.0, 1.5, np.nan, -2.0], np.float32)
+TIE_B = np.array([-0.0, 0.0, 0.0, -0.0, np.nan, 1.5, -2.0], np.float32)
+
+
+@pytest.mark.parametrize("path", ["min2_max2", "bitonic_vector_fire"])
+def test_signed_zero_ties_match_jnp(path):
+    """IEEE minimum/maximum on +-0 ties, bit for bit with jnp.minimum /
+    jnp.maximum on the CPU (the CUDA kernel computes the same on the card);
+    NaN still propagates."""
+    a, b = torch.from_numpy(TIE_A.copy()), torch.from_numpy(TIE_B.copy())
+    if path == "min2_max2":
+        prog = StreamProgram(
+            2, 4, (StreamOp("min2", (0, 1), 2), StreamOp("max2", (0, 1), 3)), (2, 3)
+        )
+        lo, hi = fused_stream_ref([a, b], prog)
+    else:
+        ce = CompareExchange(ascending=True)
+        _, outs = ce.vector_fire(None, {"IN0": (a, None), "IN1": (b, None)})
+        lo, hi = outs["OUT0"][0], outs["OUT1"][0]
+    want_lo, want_hi = jnp.minimum(TIE_A, TIE_B), jnp.maximum(TIE_A, TIE_B)
+    nan = np.isnan(np.asarray(want_lo))
+    assert np.array_equal(np.isnan(lo.numpy()), nan)
+    assert np.array_equal(np.isnan(hi.numpy()), nan)
+    assert np.array_equal(_bits(lo)[~nan], _bits(want_lo)[~nan])
+    assert np.array_equal(_bits(hi)[~nan], _bits(want_hi)[~nan])
