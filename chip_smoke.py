@@ -4,9 +4,9 @@
 
 Phases, one line or more each:
 
-1. build   — compile the stream kernel (``src/repro_torch/csrc/``) with nvcc
-             for sm_90a; print the build time, the ptxas report and the
-             card's name and power limit.
+1. build   — compile the four CUDA sources (``src/repro_torch/csrc/``), one
+             nvcc each for sm_90a, all in parallel; print the build times,
+             the ptxas reports and the card's name and power limit.
 2. kernel  — the CUDA kernel against its plain PyTorch version on the card,
              bitwise, for the demo program and the four fused Table-I
              programs at N = 4*4096 (one megastep launch at block 4096) and
@@ -34,7 +34,32 @@ Phases, one line or more each:
              launch counts set to 0 just before and read just after; loss
              finite and falling; then a profiled window of three steps for the
              device's idle share, and one step with ``use_kernels="off"``
-             from the same parameters and batch, whose loss must match.
+             from the same parameters and batch, whose loss must match.  The
+             RMSNorm kernel runs on this path too (every block norm and the
+             final norm, again in each block's recompute).
+6. norm+ssd — the RMSNorm kernel (``src/repro_torch/csrc/rmsnorm.cu``) and
+             the SSD scan kernel (``src/repro_torch/csrc/ssd_scan.cu``)
+             against their plain PyTorch versions on the card: RMSNorm at
+             R = 16384 and R = 8 rows of d = 768, 1536 (mamba2-130m) and 576
+             (smollm-135m), bfloat16 and float32; SSD at the serving path's
+             shape (B=8, S=2048, nh=24, P=64, N=128, chunk 256, bfloat16), a
+             float32 shape and a small one; kernel and plain device times
+             (CUDA-graph replay) beside the bound, and ``F.rms_norm`` beside
+             RMSNorm (no PyTorch call computes the SSD scan).
+7. serve   — LM serving, this slice's main path:
+             ``repro_torch.launch.serve.run_serving("mamba2-130m",
+             reduced=False, batch=8, prompt_len=2048, max_new=64,
+             device="cuda")`` with the kernels' launch counts set to 0 just
+             before and read just after (24 ``ssd_scan`` per prefill, 49
+             ``rmsnorm`` per forward and per decode step); prefill and decode
+             tokens/s and the device idle share of a profiled decode window;
+             prefill + decode against the full forward (B=2, S0=512, S=768);
+             the kernel path against ``use_kernels="off"`` on one prompt of
+             the path's length (B=1, S=2048), every bf16 check beside a
+             lost-state control that must exceed its limit; a
+             ``ServingEngine`` (4 slots, 8 requests of 128-768 tokens) against
+             each request's isolated generation; and ``run_serving`` on
+             smollm-135m at its published widths.
 
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels; the last line is
@@ -513,11 +538,24 @@ def phase_flash() -> dict:
 TRAIN = dict(arch="smollm-135m", steps=10, global_batch=8, seq_len=2048)
 
 
-def flash_counts() -> dict:
-    from repro_torch.kernels.flash_attention import kernel
+def lm_counts() -> dict:
+    """The launch counts of the LM path's kernels."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.ssd_scan import kernel as ssd
 
-    return {"flash_fwd": kernel.FWD_LAUNCHES, "flash_bwd_dq": kernel.DQ_LAUNCHES,
-            "flash_bwd_dkv": kernel.DKV_LAUNCHES}
+    return {"flash_fwd": flash.FWD_LAUNCHES, "flash_bwd_dq": flash.DQ_LAUNCHES,
+            "flash_bwd_dkv": flash.DKV_LAUNCHES, "rmsnorm": rms.LAUNCHES,
+            "ssd_scan": ssd.LAUNCHES}
+
+
+def zero_lm_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+
+    flash.FWD_LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
+    rms.LAUNCHES = ssd.LAUNCHES = 0
 
 
 def profiled_idle_share(train_step, params, opt_state, batch, n: int = 3) -> dict:
@@ -556,7 +594,6 @@ def phase_train() -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import run_training
     from repro_torch.model import lm
@@ -564,14 +601,14 @@ def phase_train() -> dict:
 
     print("phase 5: LM training, the main path", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
-        kernel.FWD_LAUNCHES = kernel.DQ_LAUNCHES = kernel.DKV_LAUNCHES = 0
+        zero_lm_counts()
         out = run_training(
             TRAIN["arch"], reduced=False, steps=TRAIN["steps"],
             global_batch=TRAIN["global_batch"], seq_len=TRAIN["seq_len"],
             ckpt_dir=ckpt, log_every=1, device="cuda",
         )
         torch.cuda.synchronize()
-        launches = flash_counts()
+        launches = {k: v for k, v in lm_counts().items() if k != "ssd_scan"}
     losses = out["losses"]
     steady = sorted(out["step_seconds"][1:])
     step_s = steady[len(steady) // 2]
@@ -617,11 +654,453 @@ def phase_train() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the RMSNorm and SSD scan kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+NORM_SHAPES = {
+    # name: (R, d, dtype)
+    "prefill768_bf16": (16384, 768, torch.bfloat16),
+    "prefill1536_bf16": (16384, 1536, torch.bfloat16),
+    "decode768_bf16": (8, 768, torch.bfloat16),
+    "decode1536_bf16": (8, 1536, torch.bfloat16),
+    "smollm576_bf16": (16384, 576, torch.bfloat16),
+    "decode576_bf16": (8, 576, torch.bfloat16),
+    "prefill768_f32": (16384, 768, torch.float32),
+    "prefill1536_f32": (16384, 1536, torch.float32),
+}
+NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # the reference's kernel tests
+SSD_SHAPES = {
+    # name: (B, S, nh, P, N, chunk, dtype)
+    "path": (8, 2048, 24, 64, 128, 256, torch.bfloat16),
+    "f32": (2, 512, 24, 64, 128, 256, torch.float32),
+    "small_f32": (2, 256, 4, 32, 16, 64, torch.float32),
+}
+# against the plain version: float32 sums in another order (2e-3, the
+# reference's SSD tolerance); a bf16 y differs by about one rounding of the output
+SSD_TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (2e-3, 2e-3)}  # (y, state)
+
+
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS_PER_S) -> dict:
+    b_ops, b_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(b_ops, b_bytes),
+                bound_by="operations" if b_ops >= b_bytes else "bytes")
+
+
+def ssd_work(B, S, nh, P, N, chunk, dtype) -> dict:
+    """FLOPs the function needs on this run's shape, and the bytes each input
+    is read and each output written once.  The C·Bᵀ scores (the causal half
+    of a Q x Q product) do not depend on the head: they count once per (b,
+    chunk), though the kernel recomputes them for every head.  The W·x
+    product (causal half), y_inter and the state update count per (b, h,
+    chunk)."""
+    Q = min(chunk, S)
+    pairs = Q * (Q + 1) // 2
+    chunks = S // Q
+    flops = (B * chunks * 2 * pairs * N
+             + B * nh * chunks * (2 * pairs * P + 4 * Q * P * N))
+    esz = torch.finfo(dtype).bits // 8
+    BH = B * nh
+    nbytes = 2 * BH * S * P * esz + 2 * BH * S * 4 + 2 * B * S * N * esz + BH * P * N * 4
+    return bound(flops, nbytes)
+
+
+def ssd_inputs(B, S, nh, P, N, dtype, seed):
+    """The reference's kernel-test distribution (tests/test_kernels.py), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(*size, generator=g, device="cuda", dtype=torch.float32)
+
+    x = randn(B, S, nh, P).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, nh)) * 0.1
+    A = -torch.exp(randn(nh) * 0.5)
+    return x, dt, A, (randn(B, S, N) * 0.3).to(dtype), (randn(B, S, N) * 0.3).to(dtype)
+
+
+def phase_norm_ssd():
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    print("phase 6: RMSNorm and SSD scan kernels against their plain versions", flush=True)
+    norm_rows = {}
+    for seed, (shape, (R, d, dtype)) in enumerate(NORM_SHAPES.items()):
+        g = torch.Generator(device="cuda").manual_seed(100 + seed)
+        x = torch.randn(R, d, generator=g, device="cuda").to(dtype)
+        scale = torch.rand(d, generator=g, device="cuda") + 0.5
+        got, want = rms.rmsnorm_cuda(x, scale), rmsnorm_ref(x, scale)
+        torch.cuda.synchronize()
+        tol = NORM_TOL[dtype]
+        check(close(got, want, tol), f"rmsnorm {shape}: kernel not within {tol} of plain "
+                                     f"(max abs err {max_err(got, want):.3g})")
+        check(bool(torch.isfinite(got).all()), f"rmsnorm {shape}: non-finite kernel output")
+        scale_x = scale.to(dtype)
+
+        def kern():
+            return rms.rmsnorm_cuda(x, scale)
+
+        def plain():
+            return rmsnorm_ref(x, scale)
+
+        def lib():  # the library yardstick, never called by the port
+            return F.rms_norm(x, (d,), scale_x, 1e-6)
+
+        esz = torch.finfo(dtype).bits // 8
+        row = dict(
+            shape=shape, kernel="rmsnorm", R=R, d=d, dtype=str(dtype),
+            max_abs_err=max_err(got, want), ms=device_ms(kern, reps_for(kern, most=200)),
+            plain_ms=device_ms(plain, reps_for(plain, most=200)),
+            library_ms=device_ms(lib, reps_for(lib, most=200)),
+            **bound(4 * R * d, 2 * R * d * esz + 4 * d),
+        )
+        norm_rows[shape] = row
+        print("  " + json.dumps(row), flush=True)
+
+    ssd_rows = {}
+    for seed, (shape, (B, S, nh, P, N, chunk, dtype)) in enumerate(SSD_SHAPES.items()):
+        x, dt, A, B_, C_ = ssd_inputs(B, S, nh, P, N, dtype, 200 + seed)
+        xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
+        dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
+        daf = dtf * A.repeat(B)[:, None]
+        y_k, st_k = ssd.ssd_scan_cuda(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+        y_p, st_p = ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+        torch.cuda.synchronize()
+        tol_y, tol_s = SSD_TOL[dtype]
+        for what, a, b, tol in (("y", y_k, y_p, tol_y), ("state", st_k, st_p, tol_s)):
+            check(close(a, b, tol), f"ssd_scan {shape}: kernel {what} not within {tol} of "
+                                    f"plain (max abs err {max_err(a, b):.3g})")
+            check(bool(torch.isfinite(a).all()), f"ssd_scan {shape}: non-finite kernel {what}")
+
+        def kern():
+            return ssd.ssd_scan_cuda(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+
+        def plain():
+            return ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+
+        row = dict(
+            shape=shape, kernel="ssd_scan", B=B, S=S, nh=nh, P=P, N=N, chunk=chunk,
+            dtype=str(dtype),
+            max_abs_err=max(max_err(y_k, y_p), max_err(st_k, st_p)),
+            max_abs_y=float(y_p.float().abs().max()), max_abs_state=float(st_p.abs().max()),
+            ms=device_ms(kern, reps_for(kern)), plain_ms=device_ms(plain, reps_for(plain)),
+            library_ms=None, **ssd_work(B, S, nh, P, N, chunk, dtype),
+        )
+        ssd_rows[shape] = row
+        print("  " + json.dumps(row), flush=True)
+    return norm_rows, ssd_rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: LM serving, this slice's main path
+# ---------------------------------------------------------------------------
+
+SERVE = dict(arch="mamba2-130m", batch=8, prompt_len=2048, max_new=64)
+NORMS_PER_FORWARD = {"mamba2-130m": 49, "smollm-135m": 61}  # block + gated + final
+NEAR_TIE = 6e-2  # two logits each within 3e-2 (the decode tolerance) can swap
+# bf16 at full width: the chunked prefill and the step-by-step decode (and the
+# plain path's bf16 chunk weights) round at other points, and the drift grows
+# with depth past the reference's 3e-2, which was set for 2 layers of d=64.
+# tests/test_torch_bf16_drift.py shows the JAX model drifting as far as the
+# port at full width on the CPU.  Float32, where only summation order
+# differs, is held to the reference's tolerances.  The bf16 limit on logits
+# (decode against the forward, and the kernel path against "off") lies
+# between the sound runs' largest readings and their controls', runs with
+# the carried state lost, over the prompts of these seeds; the run fails if
+# a control does not exceed it.
+BF16_LOGITS_TOL = 0.3
+BF16_SEEDS = {"decode": (1, 11, 12), "kernels_vs_off": (2, 21, 22)}
+
+
+def get_cfg(arch: str):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
+def isolated(cfg, params, prompt, max_new, max_len, eos_id=2):
+    """One request alone (batch 1): its tokens and each step's top-2 logit gap."""
+    from repro_torch.launch.serve import prefill_cache
+    from repro_torch.model import lm
+
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompt, dtype=torch.int32, device="cuda")[None, :]
+        logits, cache = prefill_cache(params, cfg, tokens, max_len)
+        out, gaps = [], []
+        pos = tokens.shape[1]
+        while True:
+            top = torch.topk(logits[0], 2).values
+            out.append(int(torch.argmax(logits[0])))
+            gaps.append(float(top[0] - top[1]))
+            if out[-1] == eos_id or len(out) >= max_new or pos >= max_len - 1:
+                return out, gaps
+            logits, cache = lm.decode_step(
+                params, cfg, cache, torch.tensor([out[-1]], dtype=torch.int32, device="cuda"),
+                pos)
+            pos += 1
+
+
+def profiled_decode(cfg, params, n: int = 16) -> dict:
+    """Device busy and idle share over ``n`` decode steps at the main path's
+    batch, after a prefill of its prompt length (CUDA activity only)."""
+    from repro_torch.launch.serve import prefill_cache
+    from repro_torch.model import lm
+
+    g = torch.Generator().manual_seed(7)
+    prompts = torch.randint(3, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
+                            generator=g, dtype=torch.int32).cuda()
+    logits, cache = prefill_cache(params, cfg, prompts, SERVE["prompt_len"] + n + 1)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                logits, cache = lm.decode_step(params, cfg, cache, tok,
+                                               SERVE["prompt_len"] + i)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    busy_us, by_kernel = 0.0, []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        busy_us += us
+        by_kernel.append((us, ev.count, ev.key))
+    top = [dict(us_per_step=us / n, calls_per_step=c / n, kernel=key[:90])
+           for us, c, key in sorted(by_kernel, reverse=True)[:10]]
+    return dict(steps=n, seconds=secs, ms_per_step=secs / n * 1e3,
+                device_busy_ms_per_step=busy_us / 1e3 / n,
+                idle_share=1.0 - busy_us / 1e6 / secs, top_kernels=top)
+
+
+def serve_main(arch: str, tag: str) -> dict:
+    """One run_serving at full width, with the LM kernels' counts set to 0
+    just before and read just after."""
+    from repro_torch.launch.serve import run_serving
+
+    zero_lm_counts()
+    out = run_serving(arch, reduced=False, batch=SERVE["batch"],
+                      prompt_len=SERVE["prompt_len"], max_new=SERVE["max_new"],
+                      device="cuda")
+    torch.cuda.synchronize()
+    launches = lm_counts()
+    steps = out["steps"]
+    row = dict(
+        run=tag, arch=arch, batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
+        steps=steps, prefill_seconds=out["prefill_seconds"],
+        decode_seconds=out["decode_seconds"],
+        prefill_tokens_per_s=SERVE["batch"] * SERVE["prompt_len"] / out["prefill_seconds"],
+        decode_tokens_per_s=SERVE["batch"] * (steps - 1) / out["decode_seconds"],
+        launches=launches,
+    )
+    print("  " + json.dumps(row), flush=True)
+    o = out["output"]
+    check(o.shape == (SERVE["batch"], SERVE["max_new"]), f"serve {arch}: output {o.shape}")
+    check(bool(((o >= 0) & (o < get_cfg(arch).vocab_size)).all()),
+          f"serve {arch}: tokens outside the vocabulary")
+    # one forward for the prefill and one per decode step (steps - 1 of them)
+    want_norms = NORMS_PER_FORWARD[arch] * steps
+    check(launches["rmsnorm"] == want_norms,
+          f"serve {arch}: {launches['rmsnorm']} rmsnorm launches, expected {want_norms}")
+    want_ssd = get_cfg(arch).num_layers if arch == "mamba2-130m" else 0
+    check(launches["ssd_scan"] == want_ssd,
+          f"serve {arch}: {launches['ssd_scan']} ssd_scan launches, expected {want_ssd}")
+    return row
+
+
+def full_logits(params, cfg, tokens) -> torch.Tensor:
+    """The full forward's logits at every position, (B, S, V) float32."""
+    from repro_torch.model import lm
+
+    with torch.inference_mode():
+        hidden, _, _ = lm.forward_hidden(params, cfg, tokens)
+        logits = torch.matmul(hidden.float(), lm._head_w(params).float())
+    return logits[..., :cfg.vocab_size]
+
+
+def decode_consistency(cfg, params, tokens, S0: int, lose_state: bool = False) -> dict:
+    """Prefill ``tokens[:, :S0]`` and teacher-forced decode of the rest
+    against the full forward's logits (tests/test_lm_consistency.py).  With
+    ``lose_state``, the control: the SSM states the prefill hands to decode
+    are zeroed, as a cache splice that dropped them would leave them."""
+    from repro_torch.launch.serve import prefill_cache
+    from repro_torch.model import lm
+
+    B, S = tokens.shape
+    V = cfg.vocab_size
+    ref = full_logits(params, cfg, tokens)
+    with torch.inference_mode():
+        logits, cache = prefill_cache(params, cfg, tokens[:, :S0], S)
+        err_p = max_err(logits[:, :V], ref[:, S0 - 1])
+        p_ok, d_ok, errs = close(logits[:, :V], ref[:, S0 - 1], 2e-2), True, []
+        if lose_state:
+            for leaves in cache.values():
+                leaves["state"].zero_()
+        for i in range(S0, S):
+            logits, cache = lm.decode_step(params, cfg, cache, tokens[:, i], i)
+            errs.append(max_err(logits[:, :V], ref[:, i]))
+            d_ok = d_ok and close(logits[:, :V], ref[:, i], 3e-2)
+    row = dict(dtype=cfg.dtype, B=B, S0=S0, S=S, lose_state=lose_state,
+               prefill_max_abs_err=err_p, prefill_ok=p_ok, decode_ok=d_ok,
+               decode_max_abs_err=max(errs), decode_err_by_step=errs[::16],
+               logits_max_abs=float(ref.abs().max()), logits_std=float(ref.std()))
+    print("  " + json.dumps({"consistency": row}), flush=True)
+    return row
+
+
+def kernels_vs_off(cfg, params, tokens) -> dict:
+    """The kernel path against ``use_kernels="off"`` on one prefill: its
+    last logits, the final SSM state of every layer, and the forward's
+    logits at every position.  The control runs the kernel path with the
+    state and conv window carried across chunk boundaries lost: the forward
+    chunk by chunk, and the prefill of the last chunk alone."""
+    import dataclasses
+
+    from repro_torch.model import lm
+
+    off = dataclasses.replace(cfg, use_kernels="off")
+    V, S, Q = cfg.vocab_size, tokens.shape[1], cfg.ssm_chunk
+    with torch.inference_mode():
+        l_k, cache_k = lm.prefill(params, cfg, tokens=tokens)
+        l_o, cache_o = lm.prefill(params, off, tokens=tokens)
+        _, cache_c = lm.prefill(params, cfg, tokens=tokens[:, S - Q:])
+    st_k, st_o, st_c = (c["pos0"]["state"] for c in (cache_k, cache_o, cache_c))
+    f_o = full_logits(params, off, tokens)
+    all_err = max_err(full_logits(params, cfg, tokens), f_o)
+    ctrl_err = max_err(torch.cat([full_logits(params, cfg, tokens[:, i:i + Q])
+                                  for i in range(0, S, Q)], 1), f_o)
+    row = dict(dtype=cfg.dtype, B=tokens.shape[0], S=S,
+               logits_max_abs_err=max(max_err(l_k[:, :V], l_o[:, :V]), all_err),
+               last_logits_max_abs_err=max_err(l_k[:, :V], l_o[:, :V]),
+               state_max_abs_err=max_err(st_k, st_o),
+               control_logits_max_abs_err=ctrl_err,
+               control_state_max_abs_err=max_err(st_c, st_o),
+               logits_max_abs=float(f_o.abs().max()), logits_std=float(f_o.std()),
+               state_max_abs=float(st_o.abs().max()))
+    print("  " + json.dumps({"kernels_vs_off": row}), flush=True)
+    return row
+
+
+def phase_serve() -> dict:
+    import dataclasses
+
+    from repro_torch.model import lm
+    from repro_torch.serving import Request, ServingEngine
+
+    from repro_torch.launch.serve import run_serving
+
+    print("phase 7: LM serving, the main path", flush=True)
+    # warm-up (first-call set-up of the libraries off the main run's clock)
+    run_serving(SERVE["arch"], reduced=False, batch=SERVE["batch"], prompt_len=256,
+                max_new=4, device="cuda", quiet=True)
+    main = serve_main(SERVE["arch"], "main")
+    cfg = get_cfg(SERVE["arch"])
+    params = lm.init_model(cfg, 0, device="cuda")
+
+    prof = profiled_decode(cfg, params)
+    print("  " + json.dumps({"profiled_decode": prof}), flush=True)
+
+    def tokens_of(seed: int, shape=(2, 768)) -> torch.Tensor:
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(3, cfg.vocab_size, shape, generator=g, dtype=torch.int32).cuda()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = lm.init_model(cfg32, 0, device="cuda")
+    seeds = BF16_SEEDS["decode"]
+    consistency = {
+        "float32": [decode_consistency(cfg32, params32, tokens_of(seeds[0]), S0=512)],
+        "bfloat16": [decode_consistency(cfg, params, tokens_of(s), S0=512) for s in seeds],
+        "bfloat16_control": [decode_consistency(cfg, params, tokens_of(s), S0=512,
+                                                lose_state=True) for s in seeds],
+    }
+    for dt in ("float32", "bfloat16"):
+        for row in consistency[dt]:
+            check(row["prefill_ok"], f"serve {dt}: prefill logits not within 2e-2 of the "
+                                     f"forward ({row['prefill_max_abs_err']:.3g})")
+            ok = row["decode_ok"] if dt == "float32" else (
+                row["decode_max_abs_err"] <= BF16_LOGITS_TOL)
+            check(ok, f"serve {dt}: decode logits off the forward by "
+                      f"{row['decode_max_abs_err']:.3g}")
+    for row in consistency["bfloat16_control"]:
+        ctrl = row["decode_max_abs_err"]
+        check(ctrl > BF16_LOGITS_TOL, f"serve bfloat16: the lost-state control's decode is off "
+                                      f"the forward by only {ctrl:.3g} <= {BF16_LOGITS_TOL}")
+
+    # the kernel path against the plain path on the main path's prompt length
+    # (one batch row): in float32 the two differ by summation order only; in
+    # bf16 the plain path also rounds the chunk weights to bf16 (the
+    # reference's w.astype(x.dtype)).  That rounding moves the bf16 final
+    # states as far as the control does, so in bf16 the states are held
+    # through the decode that reads them (above) and only printed here.
+    kvo_seeds = BF16_SEEDS["kernels_vs_off"]
+    kvo = {"float32": [], "bfloat16": []}
+    for dtype, c, p, tol, held, run_seeds in (
+        ("float32", cfg32, params32, 1e-3, ("logits", "state"), kvo_seeds[:1]),
+        ("bfloat16", cfg, params, BF16_LOGITS_TOL, ("logits",), kvo_seeds),
+    ):
+        for seed in run_seeds:
+            row = kernels_vs_off(c, p, tokens_of(seed, (1, SERVE["prompt_len"])))
+            kvo[dtype].append(row)
+            for what in held:
+                err, ctrl = row[f"{what}_max_abs_err"], row[f"control_{what}_max_abs_err"]
+                check(err <= tol, f"serve {dtype}: kernel path's {what} off use_kernels='off' "
+                                  f"by {err:.3g} > {tol}")
+                check(ctrl > tol, f"serve {dtype}: the lost-carry control's {what} off "
+                                  f"use_kernels='off' by only {ctrl:.3g} <= {tol}")
+    del params32
+
+    # continuous batching against isolated generation
+    rng = np.random.default_rng(3)
+    lens = [128, 256, 512, 768, 768, 512, 256, 128]
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, n).astype(np.int32),
+                    max_new=32) for i, n in enumerate(lens)]
+    engine = ServingEngine(cfg, params, slots=4, max_len=1024, device="cuda")
+    for r in reqs:
+        engine.submit(r)
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t0
+    check(len(done) == len(reqs), f"engine: {len(done)} of {len(reqs)} requests done")
+    same, ties = 0, []
+    for r in sorted(done, key=lambda r: r.rid):
+        want, gaps = isolated(cfg, params, r.prompt, r.max_new, 1024)
+        if r.output == want:
+            same += 1
+            continue
+        k = next((i for i, (a, b) in enumerate(zip(r.output, want)) if a != b),
+                 min(len(r.output), len(want)))
+        gap = gaps[k] if k < len(gaps) else float("inf")
+        ties.append(dict(rid=r.rid, first_difference=k, top2_gap=gap))
+        print(f"  engine request {r.rid}: first difference at token {k}, top-2 logit gap "
+              f"{gap:.4g} (near-tie bound {NEAR_TIE})", flush=True)
+        check(gap < NEAR_TIE, f"engine request {r.rid} differs from its isolated generation "
+                              f"at token {k} with a top-2 gap {gap:.3g} >= {NEAR_TIE}")
+    serial = sum(len(r.output) - 1 for r in done)
+    check(engine.steps < serial, f"engine: {engine.steps} ticks, serial {serial}")
+    eng = dict(requests=len(reqs), slots=4, ticks=engine.steps, serial_ticks=serial,
+               seconds=eng_s, equal_to_isolated=same, near_ties=ties,
+               tokens_per_s=sum(len(r.output) for r in done) / eng_s)
+    print("  " + json.dumps({"engine": eng}), flush=True)
+    del params, engine
+
+    smollm = serve_main("smollm-135m", "smollm")
+    return dict(main, profiled_decode=prof, consistency=consistency, kernels_vs_off=kvo,
+                engine=eng, smollm=smollm)
+
+
 def build_all():
     """Build every kernel library at once: one nvcc per source, in parallel."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.stream_fused import kernel as stream
 
+    mods = (stream, flash, rms, ssd)
     errors = []
 
     def run(mod):
@@ -630,12 +1109,12 @@ def build_all():
         except Exception as e:  # noqa: BLE001 — reported below, fails the run
             errors.append(f"{mod.__name__}: {e}")
 
-    threads = [threading.Thread(target=run, args=(m,)) for m in (stream, flash)]
+    threads = [threading.Thread(target=run, args=(m,)) for m in mods]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    for mod in (stream, flash):
+    for mod in mods:
         print(f"  {mod.SOURCE.name}: nvcc build {mod.BUILD_SECONDS}s", flush=True)
         for line in mod.BUILD_LOG.strip().splitlines():
             print(f"    {line.strip()}", flush=True)
@@ -662,6 +1141,8 @@ def main() -> int:
     launches = phase_e2e(NETWORKS)
     flash_rows = phase_flash()
     train = phase_train()
+    norm_rows, ssd_rows = phase_norm_ssd()
+    serve = phase_serve()
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
@@ -690,6 +1171,18 @@ def main() -> int:
             name=name, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
             replaces=replaces[name], launches=train["launches"][name],
             max_abs_err=max(flash_rows[(s, name)]["max_abs_err"] for s in FLASH_SHAPES),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+        ))
+    for name, rows_, main_shape, path in (
+        ("rmsnorm", norm_rows, "prefill768_bf16", "src/repro/kernels/rmsnorm/kernel.py:24"),
+        ("ssd_scan", ssd_rows, "path", "src/repro/kernels/ssd_scan/kernel.py:72"),
+    ):
+        row = rows_[main_shape]
+        record["kernels"].append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=path, launches=serve["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in rows_.values()),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))

@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the SSD-scan kernel (``ssd_scan_fwd`` of
+``repro/kernels/ssd_scan/kernel.py``) and the reference's sequential oracle.
+
+* :func:`ssd_scan_ref` is the kernel's math: the chunked dual form, one chunk
+  after another with the ``(P, N)`` state carried across, all float32 inside,
+  ``y`` in ``x.dtype`` and the final state in float32.  The CUDA kernel is
+  held to it on the card; ``ops.ssd_scan`` runs it for CPU tensors.
+* :func:`ssd_ref` is a port of ``repro/kernels/ssd_scan/ref.py``: the exact
+  token-by-token recurrence, for the tests.
+
+Layout (the kernel's): x ``(BH, S, P)``; dt and ``da = dt * A`` ``(BH, S)``
+float32; B and C ``(B, S, N)``, shared by the ``nheads`` heads of a batch row
+(row ``bh`` reads ``bh // nheads``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torch.Tensor,
+                 C_: torch.Tensor, *, nheads: int, chunk: int):
+    """Returns ``(y (BH, S, P) in x.dtype, final state (BH, P, N) float32)``."""
+    BH, S, P = x.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk {Q}")
+    f32 = torch.float32
+    Bh = B_.float().repeat_interleave(nheads, dim=0)  # (BH, S, N)
+    Ch = C_.float().repeat_interleave(nheads, dim=0)
+    xf, dtf, daf = x.float(), dt.float(), da.float()
+    rows = torch.arange(Q, device=x.device)
+    causal = rows[:, None] >= rows[None, :]
+    state = torch.zeros((BH, P, N), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, S, Q):
+        xc, dtc = xf[:, c0:c0 + Q], dtf[:, c0:c0 + Q]
+        bc, cc = Bh[:, c0:c0 + Q], Ch[:, c0:c0 + Q]
+        a_cs = torch.cumsum(daf[:, c0:c0 + Q], dim=1)  # (BH, Q)
+        seg = a_cs[:, :, None] - a_cs[:, None, :]  # (BH, Q, K)
+        # select, never multiply by a mask: exp overflows above the diagonal
+        L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+        scores = torch.bmm(cc, bc.transpose(1, 2))  # (BH, Q, K)
+        w = scores * L * dtc[:, None, :]
+        y_diag = torch.bmm(w, xc)  # (BH, Q, P)
+        y_inter = torch.bmm(cc, state.transpose(1, 2)) * torch.exp(a_cs)[:, :, None]
+        decay_to_end = torch.exp(a_cs[:, -1:] - a_cs) * dtc  # (BH, Q)
+        state = state * torch.exp(a_cs[:, -1])[:, None, None] + torch.bmm(
+            xc.transpose(1, 2), bc * decay_to_end[:, :, None]
+        )
+        ys.append(y_diag + y_inter)
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    return y.to(x.dtype), state
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torch.Tensor,
+            C_: torch.Tensor, *, nheads: int):
+    """The sequential recurrence: ``state = state * exp(da) + dt * x B^T``,
+    ``y = C . state``, one token at a time.  Returns ``(y in x.dtype, final
+    state float32)``."""
+    BH, S, P = x.shape
+    N = B_.shape[-1]
+    Bh = B_.float().repeat_interleave(nheads, dim=0)
+    Ch = C_.float().repeat_interleave(nheads, dim=0)
+    xf, dtf, daf = x.float(), dt.float(), da.float()
+    state = torch.zeros((BH, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        state = state * torch.exp(daf[:, t])[:, None, None] + (
+            dtf[:, t, None, None] * xf[:, t, :, None] * Bh[:, t, None, :]
+        )
+        ys.append(torch.einsum("bn,bpn->bp", Ch[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -1,10 +1,14 @@
-"""Train-step builder (port of ``repro/launch/steps.py``).
+"""Step factories (port of ``repro/launch/steps.py``).
 
 ``make_train_step(cfg, opt, accum_steps)`` returns ``train_step(params,
 opt_state, batch) -> (params, opt_state, metrics)``: the loss and its
 gradients by autograd, optionally accumulated in float32 over microbatches,
-then the AdamW update.  One card, no sharding constraints.  The dry-run spec
-builders (``batch_specs``, ``cell_specs``, ...) wait for ``launch/dryrun``.
+then the AdamW update.  ``make_prefill_step(cfg)`` and
+``make_decode_step(cfg)`` return the serving steps, ``lm.prefill`` and
+``lm.decode_step`` under ``torch.inference_mode()`` (no gradient is recorded,
+so the SSD scan kernel may run).  One card, no sharding constraints.  The
+dry-run spec functions (``batch_specs``, ``cell_specs``, ...) wait for
+``launch/dryrun``.
 """
 
 from __future__ import annotations
@@ -65,3 +69,20 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, accum_steps: int = 1):
         return new_params, new_opt, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            return lm.prefill(params, cfg, tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"))
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    def serve_step(params, cache, tokens, pos):
+        with torch.inference_mode():
+            return lm.decode_step(params, cfg, cache, tokens, pos)
+
+    return serve_step

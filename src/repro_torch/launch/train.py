@@ -32,18 +32,8 @@ from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.distributed.fault import SimulatedFailure, TrainSupervisor
 from repro_torch.launch.steps import make_train_step
 from repro_torch.model import lm
+from repro_torch.model.layers import resolve_device
 from repro_torch.optim import OptConfig, init_opt_state
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` -> ``cuda:0`` (raises without CUDA); else the device named."""
-    dev = torch.device("cuda:0" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"run_training: device {dev} asked for, but CUDA is not available "
-            f"(pass device='cpu' to train on the CPU)"
-        )
-    return dev
 
 
 def run_training(
@@ -63,7 +53,7 @@ def run_training(
     device: Union[None, str, torch.device] = None,
     quiet: bool = False,
 ) -> Dict[str, Any]:
-    dev = resolve_device(device)
+    dev = resolve_device(device, "run_training")
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()

@@ -1,8 +1,9 @@
-"""GQA attention for training: the q-chunked plain path and the flash-kernel
-path (port of ``repro/model/attention.py``, one card, no sharding rules).
+"""GQA attention: the q-chunked plain path, the flash-kernel path and the
+single-token decode branch (port of ``repro/model/attention.py``, one card, no
+sharding rules).
 
-``cfg.use_kernels`` picks the path, under the reference's condition for its
-Pallas path (no window, no cache to return):
+``cfg.use_kernels`` picks the train/prefill path, under the reference's
+condition for its Pallas path (no window, no cache to return):
 
   * ``"cuda"`` — ``kernels.flash_attention.flash_attention``: the CUDA kernels
     on CUDA tensors, their plain versions on CPU tensors;
@@ -10,7 +11,12 @@ Pallas path (no window, no cache to return):
     block stays under a budget, each chunk recomputed in the backward pass
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
-The single-token decode branch waits for the LM serving slice.
+Decode (a cache given) is the reference's plain branch: scalar or per-slot
+``(B,)`` write positions, the window mask and the ring cache, float32 scores
+and ``p`` rounded to the cache type before ``P.V``.  The new key and value are
+written into the given cache tensors IN PLACE (the reference returns updated
+copies), which saves a copy of the cache per layer and step; the same tensors
+are returned.
 """
 
 from __future__ import annotations
@@ -70,12 +76,57 @@ def _project_qkv(params, x, cfg, positions):
     k = dense(x, params["wk"]).reshape(B, S, kv, hd)
     v = dense(x, params["wv"]).reshape(B, S, kv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.rmsnorm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.rmsnorm_eps)
+        q = rms_norm(q, params["q_norm"], cfg.rmsnorm_eps, cfg.use_kernels)
+        k = rms_norm(k, params["k_norm"], cfg.rmsnorm_eps, cfg.use_kernels)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)  # (S, hd/2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def _decode(params, q, k_new, v_new, cache, write_pos, positions, window: int,
+            ring: bool, cfg, scale: float):
+    """The decode branch (reference ``attention.py:163-221``); S == 1."""
+    B, S = q.shape[:2]
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // kv
+    ck, cv = cache
+    S_max = ck.shape[1]
+    dev = ck.device
+    wp = torch.as_tensor(write_pos, dtype=torch.long, device=dev)
+    multi = wp.dim() == 1
+    cols = torch.arange(S_max, dtype=torch.long, device=dev)
+    if multi:
+        rows = torch.arange(B, device=dev)
+        ck[rows, wp] = k_new[:, 0].to(ck.dtype)
+        cv[rows, wp] = v_new[:, 0].to(cv.dtype)
+    else:
+        ck.index_copy_(1, wp.reshape(1), k_new.to(ck.dtype))
+        cv.index_copy_(1, wp.reshape(1), v_new.to(cv.dtype))
+    pos = None if multi else positions.reshape(-1)[0].to(device=dev, dtype=torch.long)
+    if ring:
+        # Ring-buffer window cache: once full (pos >= S_max) every slot is a
+        # valid in-window key; before that, only slots <= pos are.
+        if multi:
+            raise ValueError("ring window caches use uniform positions")
+        cols = torch.where(pos >= S_max, pos, cols)
+    if multi:
+        keep = cols[None, :] <= wp[:, None]  # (B, S)
+        if window:
+            keep &= cols[None, :] > wp[:, None] - window
+        keep = keep[:, None, None, :]
+    else:
+        keep = cols <= pos
+        if window and not ring:
+            keep &= cols > pos - window
+        keep = keep[None, None, None, :]
+    q_g = q.reshape(B, kv, G, hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", q_g.float(), ck.float()) * scale
+    scores = torch.where(keep, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(cv.dtype).float(), cv.float()).to(cv.dtype)
+    y = dense(out.reshape(B, S, H * hd), params["wo"])
+    return y, (ck, cv)
 
 
 def attention(
@@ -90,12 +141,13 @@ def attention(
     ring: bool = False,
     return_cache: bool = False,
 ):
-    """x: (B, S, d), train/prefill.  Returns (y, (k, v) if return_cache else None)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "decode attention (cache given) is not ported yet: ROADMAP A8, "
-            "the LM serving slice"
-        )
+    """x: (B, S, d).  Train/prefill when cache is None; single-token decode
+    otherwise.
+
+    cache: (k, v) each (B, S_max, kv, hd); write_pos: a scalar position (int
+    or 0-d tensor) or a (B,) vector (continuous batching: every slot at its own
+    offset).  Returns (y, (k, v) if return_cache or decoding else None).
+    """
     if cfg.use_kernels not in KERNEL_MODES:
         raise ValueError(f"use_kernels={cfg.use_kernels!r}, not one of {KERNEL_MODES}")
     B, S, d = x.shape
@@ -104,6 +156,9 @@ def attention(
     scale = 1.0 / math.sqrt(hd)
 
     q, k, v = _project_qkv(params, x, cfg, positions)
+    if cache is not None:
+        return _decode(params, q, k, v, cache, write_pos, positions, window, ring, cfg,
+                       scale)
     if cfg.use_kernels != "off" and window == 0 and not return_cache:
         from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -119,11 +174,12 @@ def attention(
         rows = j * q_chunk + torch.arange(q_chunk, device=x.device)
         return _attn_block(qc, k_full, v_full, rows, cols, window, scale)
 
-    outs = [
-        checkpoint(chunk_attn, q[:, j * q_chunk:(j + 1) * q_chunk], j,
-                   use_reentrant=False, preserve_rng_state=False)
-        for j in range(S // q_chunk)
-    ]
+    def run(qc, j):
+        if not torch.is_grad_enabled():  # nothing to recompute
+            return chunk_attn(qc, j)
+        return checkpoint(chunk_attn, qc, j, use_reentrant=False, preserve_rng_state=False)
+
+    outs = [run(q[:, j * q_chunk:(j + 1) * q_chunk], j) for j in range(S // q_chunk)]
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     y = dense(out.reshape(B, S, H * hd), params["wo"])
     return y, ((k, v) if return_cache else None)

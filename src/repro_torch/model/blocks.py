@@ -1,8 +1,8 @@
-"""Block assembly: pre-norm attention mixer + dense SwiGLU FFN (port of
-``repro/model/blocks.py``).
+"""Block assembly: pre-norm mixer (attention or SSD) + optional dense SwiGLU
+FFN (port of ``repro/model/blocks.py``).
 
-Only dense attention blocks are ported; the SSM mixer and the MoE FFN raise
-``NotImplementedError`` naming their ROADMAP item (A8).
+Every norm runs through ``layers.rms_norm`` in ``cfg.use_kernels`` mode.  The
+MoE FFN raises ``NotImplementedError`` naming its ROADMAP item (A8).
 """
 
 from __future__ import annotations
@@ -14,13 +14,10 @@ import torch
 from repro_torch.configs.base import FFN_DENSE, FFN_MOE, FFN_NONE, MIXER_ATTN, BlockKind
 from repro_torch.model.attention import attention, attn_defs
 from repro_torch.model.layers import mlp_defs, norm_defs, rms_norm, swiglu
+from repro_torch.model.ssm import init_ssm_cache, ssm_defs, ssm_mixer
 
 
 def _check_kind(kind: BlockKind) -> None:
-    if kind.mixer != MIXER_ATTN:
-        raise NotImplementedError(
-            f"{kind.mixer} mixer blocks are not ported yet: ROADMAP A8 (model/ssm.py)"
-        )
     if kind.ffn == FFN_MOE:
         raise NotImplementedError(
             "MoE FFN blocks are not ported yet: ROADMAP A8 (model/moe.py)"
@@ -30,11 +27,24 @@ def _check_kind(kind: BlockKind) -> None:
 def block_defs(cfg, kind: BlockKind) -> Dict[str, Any]:
     _check_kind(kind)
     d = cfg.d_model
-    defs: Dict[str, Any] = {"norm_mixer": norm_defs(d), "mixer": attn_defs(cfg)}
+    defs: Dict[str, Any] = {"norm_mixer": norm_defs(d)}
+    defs["mixer"] = attn_defs(cfg) if kind.mixer == MIXER_ATTN else ssm_defs(cfg)
     if kind.ffn != FFN_NONE:
         defs["norm_ffn"] = norm_defs(d)
         defs["ffn"] = mlp_defs(d, cfg.d_ff)
     return defs
+
+
+def init_block_cache(cfg, kind: BlockKind, batch: int, cache_len: int, dtype,
+                     device=None):
+    """Decode cache for one block."""
+    if kind.mixer == MIXER_ATTN:
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        return {
+            "k": torch.zeros((batch, cache_len, kv, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, cache_len, kv, hd), dtype=dtype, device=device),
+        }
+    return init_ssm_cache(cfg, batch, dtype, device)
 
 
 def block_fwd(
@@ -50,20 +60,26 @@ def block_fwd(
     ring: bool = False,
     return_cache: bool = False,
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
-    """Returns (x, new_cache, aux); aux is empty for dense blocks."""
+    """Returns (x, new_cache, aux); aux is empty (no MoE)."""
     _check_kind(kind)
-    h = rms_norm(x, params["norm_mixer"]["scale"], cfg.rmsnorm_eps)
-    y, new_cache = attention(
-        params["mixer"], h, cfg, positions,
-        cache=(cache["k"], cache["v"]) if cache is not None else None,
-        write_pos=write_pos, window=window, ring=ring,
-        return_cache=return_cache or cache is not None,
-    )
-    if new_cache is not None:
-        new_cache = {"k": new_cache[0], "v": new_cache[1]}
+    h = rms_norm(x, params["norm_mixer"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
+    if kind.mixer == MIXER_ATTN:
+        y, new_cache = attention(
+            params["mixer"], h, cfg, positions,
+            cache=(cache["k"], cache["v"]) if cache is not None else None,
+            write_pos=write_pos, window=window, ring=ring,
+            return_cache=return_cache or cache is not None,
+        )
+        if new_cache is not None:
+            new_cache = {"k": new_cache[0], "v": new_cache[1]}
+    else:
+        y, new_cache = ssm_mixer(
+            params["mixer"], h, cfg, cache=cache,
+            return_cache=return_cache or cache is not None,
+        )
     x = x + y
     if kind.ffn == FFN_DENSE:
-        h = rms_norm(x, params["norm_ffn"]["scale"], cfg.rmsnorm_eps)
+        h = rms_norm(x, params["norm_ffn"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
         x = x + swiglu(h, params["ffn"]["w_gate"], params["ffn"]["w_up"],
                        params["ffn"]["w_down"])
     return x, new_cache, {}

@@ -14,7 +14,7 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from repro_torch.model.layers import torch_dtype
+from repro_torch.model.layers import resolve_device, torch_dtype
 from repro_torch.model.lm import model_defs
 from repro_torch.paramdef import is_paramdef
 from repro_torch.pytree import tree_map
@@ -22,9 +22,12 @@ from repro_torch.pytree import tree_map
 PyTree = Any
 
 
-def params_from_numpy(tree: PyTree, cfg, device: Union[str, torch.device] = "cpu") -> PyTree:
+def params_from_numpy(tree: PyTree, cfg, device: Union[None, str, torch.device] = None
+                      ) -> PyTree:
     """The port's parameters (leaves that require grad) from a tree of numpy
-    arrays shaped as ``lm.model_defs(cfg)``."""
+    arrays shaped as ``lm.model_defs(cfg)``, on ``device`` (``None``:
+    ``cuda:0``, raising without CUDA)."""
+    device = resolve_device(device, "params_from_numpy")
 
     def leaf(d, a):
         a = np.asarray(a)

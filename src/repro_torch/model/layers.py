@@ -11,6 +11,14 @@ Init draws from an explicit ``torch.Generator`` with the reference's rules
 two frameworks give different numbers from one seed, so tests carry the
 reference's weights across with ``model/convert.py``.
 
+``rms_norm`` takes the kernel mode (``cfg.use_kernels``, passed by every
+caller): ``"off"`` is the reference's plain function, ``"cuda"`` the RMSNorm
+kernel (``kernels/rmsnorm``; its plain version on CPU tensors).
+
+``device=None`` means ``cuda:0`` wherever the port places tensors
+(:func:`resolve_device`), and raises when CUDA is not available; the tests
+pass ``device="cpu"``.
+
 Not ported: the ``REPRO_BF16_DOTS`` experiment switch of ``dense``.
 """
 
@@ -31,6 +39,21 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch
 
 def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+def resolve_device(device: Union[None, str, torch.device], who: str = "repro_torch"
+                   ) -> torch.device:
+    """``None`` -> ``cuda:0`` (raises without CUDA); else the device named."""
+    dev = torch.device("cuda:0" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: device {dev} asked for, but CUDA is not available "
+                f"(pass device='cpu' to run on the CPU)"
+            )
+        if dev.index is None:  # "cuda" names the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def stack_defs(defs: PyTree, n: int) -> PyTree:
@@ -65,9 +88,11 @@ def init_leaf(d: ParamDef, gen: torch.Generator, default_dtype) -> torch.Tensor:
 
 
 def init_params(defs: PyTree, seed: int = 0, default_dtype="bfloat16",
-                device: Union[str, torch.device] = "cpu") -> PyTree:
+                device: Union[None, str, torch.device] = None) -> PyTree:
     """Draw every leaf on the CPU from one generator seeded with ``seed``, in
-    leaf order, then move it to ``device``; leaves require grad."""
+    leaf order, then move it to ``device`` (``None``: ``cuda:0``); leaves
+    require grad."""
+    device = resolve_device(device, "init_params")
     leaves, treedef = tree_flatten(defs, is_leaf=is_paramdef)
     gen = torch.Generator().manual_seed(seed)
     out = [
@@ -81,7 +106,18 @@ def init_params(defs: PyTree, seed: int = 0, default_dtype="bfloat16",
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             kernels: str) -> torch.Tensor:
+    """RMSNorm over the last axis.  ``kernels`` is the caller's
+    ``cfg.use_kernels``: ``"cuda"`` runs the RMSNorm kernel (differentiable),
+    ``"off"`` this plain function.  It has no default, so that no caller
+    takes the plain path on the card by leaving it out."""
+    if kernels == "cuda":
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+        return rmsnorm(x, scale, eps)
+    if kernels != "off":
+        raise ValueError(f"kernels={kernels!r}, not 'off' or 'cuda'")
     dtype = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)

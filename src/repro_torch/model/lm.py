@@ -1,5 +1,5 @@
-"""Causal LM assembly: embedding -> blocks -> chunked CE loss (port of
-``repro/model/lm.py`` for training).
+"""Causal LM assembly: embedding -> blocks -> chunked CE loss, and serving:
+``init_cache``, ``prefill`` and ``decode_step`` (port of ``repro/model/lm.py``).
 
 Layers are stacked per *period position*, as in the reference, so the two
 packages share one parameter tree (``model/convert.py`` carries weights
@@ -12,9 +12,17 @@ The CE loss is computed in 512-token sequence chunks, each recomputed in the
 backward pass, with the head matmul inside, so the (tokens x vocab) float32
 logits never exist for the whole sequence at once.
 
+Serving keeps the decode cache stacked per period position, as the
+parameters are: a tree of ``(num_periods, ...)`` leaves per pattern position.
+``prefill`` runs ``forward_hidden(collect_cache=True)`` (no recompute; the
+attention blocks take the plain path, since they return a cache) and stacks
+each block's cache.  ``decode_step`` updates the cache it is given IN PLACE
+and returns it (the reference returns an updated copy): the attention blocks
+write the new key/value into their slices, and the SSM blocks' new state and
+conv windows are copied into theirs.
+
 Not ported yet: ``batch_chunks > 1`` and the ``save_dispatch`` remat policy
-(MoE only) raise; ``prefill``, ``decode_step`` and ``init_cache`` wait for the
-LM serving slice (ROADMAP A8).
+(MoE only) raise (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -26,12 +34,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.model.blocks import block_defs, block_fwd
+from repro_torch.model.blocks import block_defs, block_fwd, init_block_cache
 from repro_torch.model.layers import (
     ParamDef,
     dense,
     init_params,
     norm_defs,
+    resolve_device,
     rms_norm,
     stack_defs,
     torch_dtype,
@@ -62,8 +71,11 @@ def model_defs(cfg: ModelConfig) -> PyTree:
 
 
 def init_model(cfg: ModelConfig, seed: int = 0,
-               device: Union[str, torch.device] = "cpu") -> PyTree:
-    return init_params(model_defs(cfg), seed, cfg.param_dtype, device)
+               device: Union[None, str, torch.device] = None) -> PyTree:
+    """Random parameters from ``seed`` on ``device`` (``None``: ``cuda:0``,
+    raising without CUDA)."""
+    return init_params(model_defs(cfg), seed, cfg.param_dtype,
+                       resolve_device(device, "init_model"))
 
 
 # ---------------------------------------------------------------------------
@@ -104,12 +116,7 @@ def _unstack(stacked: PyTree, n: int) -> List[PyTree]:
 def forward_hidden(
     params, cfg: ModelConfig, tokens=None, embeds=None, *, collect_cache: bool = False
 ):
-    """Full-sequence forward.  Returns (hidden (B,S,d), aux, None)."""
-    if collect_cache:
-        raise NotImplementedError(
-            "collecting a decode cache (prefill) is not ported yet: ROADMAP A8, "
-            "the LM serving slice"
-        )
+    """Full-sequence forward.  Returns (hidden (B,S,d), aux, cache_or_None)."""
     if cfg.batch_chunks > 1:
         raise NotImplementedError(
             "batch_chunks > 1 (in-block batch chunking) is not ported: it only "
@@ -132,18 +139,32 @@ def forward_hidden(
 
         return f
 
+    caches: Dict[str, List[Any]] = {f"pos{i}": [] for i in range(len(pattern))}
     for period in range(cfg.num_periods):
         for i, kind in enumerate(pattern):
             p = layers[f"pos{i}"][period]
-            if cfg.remat == "none":
+            if collect_cache:
+                x, cache, _ = block_fwd(p, x, kind, cfg, positions, return_cache=True)
+                caches[f"pos{i}"].append(cache)
+            elif cfg.remat == "none" or not torch.is_grad_enabled():
                 x = block(kind)(p, x)
             else:
                 x = checkpoint(block(kind), p, x, use_reentrant=False,
                                preserve_rng_state=False)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_balance": zero, "moe_zloss": zero}
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.rmsnorm_eps)
-    return x, aux, None
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
+    if not collect_cache:
+        return x, aux, None
+    stacked = {k: _stack(per_layer) for k, per_layer in caches.items()}
+    return x, aux, stacked
+
+
+def _stack(trees: List[PyTree]) -> PyTree:
+    """One tree of (n, ...) leaves from n trees of one structure."""
+    flat = [tree_flatten(t) for t in trees]
+    treedef = flat[0][1]
+    return tree_unflatten(treedef, [torch.stack(ls) for ls in zip(*(f[0] for f in flat))])
 
 
 # ---------------------------------------------------------------------------
@@ -187,3 +208,80 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     )
     metrics = {"loss": loss, "ce": ce, **aux, "tokens": cnt}
     return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Union[None, str, torch.device] = None) -> PyTree:
+    """Decode cache tree, stacked over periods per pattern position, on
+    ``device`` (``None``: ``cuda:0``, raising without CUDA)."""
+    dev = resolve_device(device, "init_cache")
+    np_ = cfg.num_periods
+    caches = {}
+    for i, kind in enumerate(cfg.pattern()):
+        clen = attn_cache_len(cfg, max_len) if kind.mixer == "attn" else max_len
+        one = init_block_cache(cfg, kind, batch, clen, torch_dtype(cfg.dtype), dev)
+        leaves, treedef = tree_flatten(one)
+        caches[f"pos{i}"] = tree_unflatten(
+            treedef, [torch.zeros((np_,) + tuple(a.shape), dtype=a.dtype, device=dev)
+                      for a in leaves]
+        )
+    return caches
+
+
+def _logits(h: torch.Tensor, params, cfg) -> torch.Tensor:
+    """(B, d) hidden -> (B, Vp) float32 logits of the bf16/f32 values, masked."""
+    return torch.matmul(h.float(), _head_w(params).float()) + _vocab_mask(cfg, h.device)
+
+
+def prefill(params, cfg: ModelConfig, tokens=None, embeds=None):
+    """Returns (last-token logits (B, Vp) float32, cache)."""
+    hidden, _, caches = forward_hidden(params, cfg, tokens, embeds, collect_cache=True)
+    return _logits(hidden[:, -1, :], params, cfg), caches
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
+    """One decode step.  tokens: (B,) int; pos: a scalar (int or 0-d tensor:
+    the uniform batch position) or a (B,) tensor (continuous batching:
+    per-slot positions).
+
+    Returns (logits (B, Vp) float32, cache): the cache given, updated in place.
+    """
+    x = _embed_in(params, cfg, tokens[:, None])
+    dev = x.device
+    pos_t = torch.as_tensor(pos, dtype=torch.long, device=dev)
+    multi = pos_t.dim() == 1
+    positions = pos_t[:, None] if multi else pos_t.reshape(1)
+    pattern = cfg.pattern()
+    layers = {
+        f"pos{i}": _unstack(params["layers"][f"pos{i}"], cfg.num_periods)
+        for i in range(len(pattern))
+    }
+    for period in range(cfg.num_periods):
+        for i, kind in enumerate(pattern):
+            c = {k: v[period] for k, v in cache[f"pos{i}"].items()}
+            ring = False
+            wp = pos_t
+            if kind.mixer == "attn" and not multi:
+                clen = c["k"].shape[1]
+                ring = bool(cfg.sliding_window) and clen <= cfg.sliding_window
+                wp = pos_t % clen if ring else pos_t
+            x, nc, _ = block_fwd(
+                layers[f"pos{i}"][period], x, kind, cfg, positions,
+                cache=c, write_pos=wp, ring=ring,
+            )
+            for k, new in nc.items():
+                if new is not c[k]:
+                    c[k].copy_(new)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
+    return _logits(x[:, 0, :], params, cfg), cache

@@ -1,0 +1,234 @@
+"""Mamba-2 / SSD sequence mixer (port of ``repro/model/ssm.py``; state-space
+duality, arXiv:2405.21060), one card, no sharding rules.
+
+Prefill runs the chunked SSD algorithm: within a chunk the dual
+(attention-like) quadratic form, across chunks a linear recurrence on the
+carried state.  Decode is the exact single-step recurrence on the SSM state.
+``cfg.use_kernels`` picks the chunked scan of prefill:
+
+  * ``"off"``  — :func:`ssd_chunked`, the reference's plain path, kept
+    exactly (its ``w.astype(xc.dtype)`` rounding included);
+  * ``"cuda"`` — ``kernels.ssd_scan.ssd_scan``: the CUDA kernel on CUDA
+    tensors, its plain version on CPU tensors.  The kernel is forward only,
+    as the reference's is, so this mode raises ``NotImplementedError`` when a
+    gradient is being recorded (SSM training needs an SSD backward: ROADMAP
+    A8) and never falls back to the plain path.
+
+The gated norm runs through ``layers.rms_norm`` in the same mode.  The
+softplus of the step sizes is ``logaddexp(x, 0)``, the reference's
+``jax.nn.softplus`` formula; ``F.softplus`` would turn linear above 20, an
+error below 3e-9.  The reference's ``jax.checkpoint`` around the chunk body
+is not needed: the port recomputes per block (``lm.forward_hidden``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.model.layers import ParamDef, dense, rms_norm, silu
+
+
+def ssm_defs(cfg) -> Dict[str, ParamDef]:
+    d, di, ds, nh, w = (
+        cfg.d_model,
+        cfg.d_inner,
+        cfg.ssm_state,
+        cfg.ssm_heads,
+        cfg.ssm_conv_width,
+    )
+    return {
+        "w_x": ParamDef((d, di), ("fsdp", "tp")),
+        "w_z": ParamDef((d, di), ("fsdp", "tp")),
+        "w_b": ParamDef((d, ds), ("fsdp", None)),
+        "w_c": ParamDef((d, ds), ("fsdp", None)),
+        "w_dt": ParamDef((d, nh), ("fsdp", None)),
+        "conv_x": ParamDef((w, di), (None, "tp"), scale=0.5),
+        "conv_b": ParamDef((w, ds), (None, None), scale=0.5),
+        "conv_c": ParamDef((w, ds), (None, None), scale=0.5),
+        "a_log": ParamDef((nh,), (None,), init="ssm_a", dtype="float32"),
+        "dt_bias": ParamDef((nh,), (None,), init="ssm_dt", dtype="float32"),
+        "d_skip": ParamDef((nh,), (None,), init="ones", dtype="float32"),
+        "norm": ParamDef((di,), (None,), init="ones", dtype="float32"),
+        "w_out": ParamDef((di, d), ("tp", "fsdp")),
+    }
+
+
+def _causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  x: (B, S, C); kernel: (W, C)."""
+    W = kernel.shape[0]
+    S = x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+    out = sum(xp[:, i:i + S, :] * kernel[i].to(x.dtype) for i in range(W))
+    return out
+
+
+def _conv_step(x_t: torch.Tensor, state: torch.Tensor, kernel: torch.Tensor):
+    """x_t: (B, 1, C); state: (B, W-1, C) last inputs.  Returns (y_t, new_state)."""
+    window = torch.cat([state, x_t], dim=1)  # (B, W, C)
+    y = torch.einsum("bwc,wc->bc", window, kernel.to(x_t.dtype))[:, None, :]
+    return y, window[:, 1:, :]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def ssd_chunked(
+    x: torch.Tensor,   # (B, S, nh, hd) — already dt-independent input
+    dt: torch.Tensor,  # (B, S, nh) — positive step sizes
+    A: torch.Tensor,   # (nh,) — negative
+    B_: torch.Tensor,  # (B, S, ds)
+    C_: torch.Tensor,  # (B, S, ds)
+    chunk: int,
+    state0: Optional[torch.Tensor] = None,  # (B, nh, hd, ds)
+):
+    """Chunked SSD.  Returns (y (B,S,nh,hd), final_state (B,nh,hd,ds))."""
+    B, S, nh, hd = x.shape
+    ds = B_.shape[-1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"ssd_chunked: S={S} is not a multiple of the chunk {chunk}")
+    f32 = torch.float32
+    state = state0 if state0 is not None else torch.zeros(
+        (B, nh, hd, ds), dtype=f32, device=x.device
+    )
+    rows = torch.arange(chunk, device=x.device)
+    causal = (rows[:, None] >= rows[None, :])[None, :, :, None]
+    ys = []
+    for c0 in range(0, S, chunk):
+        xc = x[:, c0:c0 + chunk]  # (B,Q,nh,hd)
+        dtc = dt[:, c0:c0 + chunk].float()  # (B,Q,nh)
+        bc, cc = B_[:, c0:c0 + chunk], C_[:, c0:c0 + chunk]  # (B,Q,ds)
+        da = dtc * A  # (B,Q,nh), negative
+        a_cs = torch.cumsum(da, dim=1)  # inclusive cumsum
+        # intra-chunk (dual quadratic form)
+        seg = a_cs[:, :, None, :] - a_cs[:, None, :, :]  # (B,Q,K,nh): sum_{k+1..q}
+        L = torch.where(causal, torch.exp(seg), 0.0)  # (B,Q,K,nh)
+        scores = torch.einsum("bqn,bkn->bqk", cc.float(), bc.float())
+        w = scores[:, :, :, None] * L * dtc[:, None, :, :]  # (B,Q,K,nh)
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", w.to(xc.dtype).float(), xc.float())
+        # contribution of the carried state
+        y_inter = torch.einsum("bqn,bhpn->bqhp", cc.float(), state) * torch.exp(
+            a_cs
+        )[:, :, :, None]
+        # state update
+        decay_to_end = torch.exp(a_cs[:, -1:, :] - a_cs)  # (B,Q,nh)
+        state_in = torch.einsum(
+            "bkh,bkn,bkhp->bhpn", dtc * decay_to_end, bc.float(), xc.float()
+        )
+        state = state * torch.exp(a_cs[:, -1])[:, :, None, None] + state_in
+        ys.append((y_diag + y_inter).to(x.dtype))
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    return y, state
+
+
+def ssd_step(
+    x: torch.Tensor,   # (B, nh, hd)
+    dt: torch.Tensor,  # (B, nh)
+    A: torch.Tensor,   # (nh,)
+    B_: torch.Tensor,  # (B, ds)
+    C_: torch.Tensor,  # (B, ds)
+    state: torch.Tensor,  # (B, nh, hd, ds) f32
+):
+    dt = dt.float()
+    da = torch.exp(dt * A)  # (B, nh)
+    upd = torch.einsum("bh,bn,bhp->bhpn", dt, B_.float(), x.float())
+    state = state * da[:, :, None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", C_.float(), state)
+    return y.to(x.dtype), state
+
+
+def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None):
+    di, ds, nh, w = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv_width
+    return {
+        "state": torch.zeros((batch, nh, cfg.ssm_head_dim, ds), dtype=torch.float32,
+                             device=device),
+        "conv_x": torch.zeros((batch, w - 1, di), dtype=dtype, device=device),
+        "conv_b": torch.zeros((batch, w - 1, ds), dtype=dtype, device=device),
+        "conv_c": torch.zeros((batch, w - 1, ds), dtype=dtype, device=device),
+    }
+
+
+def _records_grad(params, x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params.values())
+    )
+
+
+def ssm_mixer(
+    params,
+    x: torch.Tensor,  # (B, S, d)
+    cfg,
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    return_cache: bool = False,
+):
+    """Full Mamba-2 mixer: proj -> conv -> SSD -> gated norm -> out proj.
+
+    Train/prefill when cache is None (optionally returning the cache for
+    serving); decode (S==1) when cache is given.  Returns (y, new_cache_or_None).
+    """
+    B, S, d = x.shape
+    nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    f32 = torch.float32
+
+    xp = dense(x, params["w_x"])  # (B,S,di)
+    z = dense(x, params["w_z"])
+    bp = dense(x, params["w_b"])  # (B,S,ds)
+    cp = dense(x, params["w_c"])
+    dt_raw = dense(x, params["w_dt"]).float()  # (B,S,nh)
+    dt = softplus(dt_raw + params["dt_bias"].float())
+    A = -torch.exp(params["a_log"].float())  # (nh,)
+
+    if cache is None:
+        xc = silu(_causal_conv(xp, params["conv_x"]))
+        bc = silu(_causal_conv(bp, params["conv_b"]))
+        cc = silu(_causal_conv(cp, params["conv_c"]))
+        xh = xc.reshape(B, S, nh, hd)
+        if cfg.use_kernels == "cuda":
+            if _records_grad(params, x):
+                raise NotImplementedError(
+                    "the SSD scan kernel is forward only: SSM training needs an SSD "
+                    "backward (ROADMAP A8, SSM training); use_kernels='off' trains "
+                    "through the plain path"
+                )
+            from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+            y, final_state = ssd_scan(xh, dt, A, bc, cc, chunk=cfg.ssm_chunk)
+        elif cfg.use_kernels == "off":
+            y, final_state = ssd_chunked(xh, dt, A, bc, cc, cfg.ssm_chunk)
+        else:
+            raise ValueError(f"use_kernels={cfg.use_kernels!r}, not 'off' or 'cuda'")
+        y = y + params["d_skip"].float()[:, None] * xh.float()
+        new_cache = None
+        if return_cache:
+            W = cfg.ssm_conv_width
+            if S < W - 1:
+                raise ValueError(f"ssm_mixer: a prompt of {S} tokens is shorter than the "
+                                 f"conv window's {W - 1}")
+            new_cache = {
+                "state": final_state,
+                "conv_x": xp[:, S - (W - 1):, :],
+                "conv_b": bp[:, S - (W - 1):, :],
+                "conv_c": cp[:, S - (W - 1):, :],
+            }
+    else:
+        xc_t, conv_x = _conv_step(xp, cache["conv_x"], params["conv_x"])
+        bc_t, conv_b = _conv_step(bp, cache["conv_b"], params["conv_b"])
+        cc_t, conv_c = _conv_step(cp, cache["conv_c"], params["conv_c"])
+        xh = silu(xc_t)[:, 0].reshape(B, nh, hd)
+        yt, state = ssd_step(
+            xh, dt[:, 0], A, silu(bc_t)[:, 0], silu(cc_t)[:, 0], cache["state"]
+        )
+        y = yt[:, None] + params["d_skip"].float()[:, None] * xh.float()[:, None]
+        y = y.reshape(B, S, nh, hd)
+        new_cache = {
+            "state": state, "conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c
+        }
+
+    y = y.reshape(B, S, nh * hd).to(x.dtype)
+    y = rms_norm(y * silu(z), params["norm"], cfg.rmsnorm_eps, cfg.use_kernels)
+    out = dense(y, params["w_out"])
+    return out, new_cache
