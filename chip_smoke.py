@@ -4,7 +4,7 @@
 
 Phases, one line or more each:
 
-1. build   — compile the four CUDA sources (``src/repro_torch/csrc/``), one
+1. build   — compile the five CUDA sources (``src/repro_torch/csrc/``), one
              nvcc each for sm_90a, all in parallel; print the build times,
              the ptxas reports and the card's name and power limit.
 2. kernel  — the CUDA kernel against its plain PyTorch version on the card,
@@ -60,6 +60,26 @@ Phases, one line or more each:
              ``ServingEngine`` (4 slots, 8 requests of 128-768 tokens) against
              each request's isolated generation; and ``run_serving`` on
              smollm-135m at its published widths.
+8. gmm     — the grouped-matmul kernel (``src/repro_torch/csrc/moe_gmm.cu``)
+             against its plain PyTorch version on the card at the MoE path's
+             shapes: bf16 gate/up (64, 1984, 2048) x (64, 2048, 1408), down
+             (64, 1984, 1408) x (64, 1408, 2048), decode at C = 8 and C = 6,
+             and a float32 shape; each row bitwise the same whatever C and
+             the tile height; kernel, plain and ``torch.bmm`` device times
+             (CUDA-graph replay) beside the bound.
+9. moe     — MoE serving, this slice's main path:
+             ``run_serving("deepseek-moe-16b", reduced=False, batch=8,
+             prompt_len=2048, max_new=64, device="cuda")`` with the launch
+             counts set to 0 just before and read just after (84 ``moe_gmm``
+             and 57 ``rmsnorm`` per forward and per decode step); prefill and
+             decode tokens/s, peak memory, the init seconds and the idle
+             share of a profiled decode window; prefill + decode against the
+             forward (B=2, S0=512, S=768) on a capacity nothing overflows;
+             the kernel path against ``use_kernels="off"`` on one 2048-token
+             prompt; each bf16 check on the median position, beside a control
+             that must exceed its limit; float32 (4 of 28 layers) at the
+             reference's tolerances; and the 4-slot engine against isolated
+             generation (held in float32, printed in bf16).
 
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels; the last line is
@@ -541,21 +561,23 @@ TRAIN = dict(arch="smollm-135m", steps=10, global_batch=8, seq_len=2048)
 def lm_counts() -> dict:
     """The launch counts of the LM path's kernels."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.moe_gmm import kernel as gmm
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.ssd_scan import kernel as ssd
 
     return {"flash_fwd": flash.FWD_LAUNCHES, "flash_bwd_dq": flash.DQ_LAUNCHES,
             "flash_bwd_dkv": flash.DKV_LAUNCHES, "rmsnorm": rms.LAUNCHES,
-            "ssd_scan": ssd.LAUNCHES}
+            "ssd_scan": ssd.LAUNCHES, "moe_gmm": gmm.LAUNCHES}
 
 
 def zero_lm_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.moe_gmm import kernel as gmm
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.ssd_scan import kernel as ssd
 
     flash.FWD_LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
-    rms.LAUNCHES = ssd.LAUNCHES = 0
+    rms.LAUNCHES = ssd.LAUNCHES = gmm.LAUNCHES = 0
 
 
 def profiled_idle_share(train_step, params, opt_state, batch, n: int = 3) -> dict:
@@ -608,7 +630,7 @@ def phase_train() -> dict:
             ckpt_dir=ckpt, log_every=1, device="cuda",
         )
         torch.cuda.synchronize()
-        launches = {k: v for k, v in lm_counts().items() if k != "ssd_scan"}
+        launches = {k: v for k, v in lm_counts().items() if k not in ("ssd_scan", "moe_gmm")}
     losses = out["losses"]
     steady = sorted(out["step_seconds"][1:])
     step_s = steady[len(steady) // 2]
@@ -799,7 +821,9 @@ def phase_norm_ssd():
 # ---------------------------------------------------------------------------
 
 SERVE = dict(arch="mamba2-130m", batch=8, prompt_len=2048, max_new=64)
-NORMS_PER_FORWARD = {"mamba2-130m": 49, "smollm-135m": 61}  # block + gated + final
+NORMS_PER_FORWARD = {"mamba2-130m": 49, "smollm-135m": 61,  # block + gated + final
+                     "deepseek-moe-16b": 57}
+GMM_PER_FORWARD = {"deepseek-moe-16b": 84}  # gate, up, down per MoE layer
 NEAR_TIE = 6e-2  # two logits each within 3e-2 (the decode tolerance) can swap
 # bf16 at full width: the chunked prefill and the step-by-step decode (and the
 # plain path's bf16 chunk weights) round at other points, and the drift grows
@@ -882,12 +906,14 @@ def serve_main(arch: str, tag: str) -> dict:
     just before and read just after."""
     from repro_torch.launch.serve import run_serving
 
+    torch.cuda.reset_peak_memory_stats()
     zero_lm_counts()
     out = run_serving(arch, reduced=False, batch=SERVE["batch"],
                       prompt_len=SERVE["prompt_len"], max_new=SERVE["max_new"],
                       device="cuda")
     torch.cuda.synchronize()
     launches = lm_counts()
+    peak = torch.cuda.max_memory_allocated()
     steps = out["steps"]
     row = dict(
         run=tag, arch=arch, batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
@@ -895,7 +921,7 @@ def serve_main(arch: str, tag: str) -> dict:
         decode_seconds=out["decode_seconds"],
         prefill_tokens_per_s=SERVE["batch"] * SERVE["prompt_len"] / out["prefill_seconds"],
         decode_tokens_per_s=SERVE["batch"] * (steps - 1) / out["decode_seconds"],
-        launches=launches,
+        launches=launches, max_memory_allocated_gb=peak / 1e9,
     )
     print("  " + json.dumps(row), flush=True)
     o = out["output"]
@@ -909,6 +935,9 @@ def serve_main(arch: str, tag: str) -> dict:
     want_ssd = get_cfg(arch).num_layers if arch == "mamba2-130m" else 0
     check(launches["ssd_scan"] == want_ssd,
           f"serve {arch}: {launches['ssd_scan']} ssd_scan launches, expected {want_ssd}")
+    want_gmm = GMM_PER_FORWARD.get(arch, 0) * steps
+    check(launches["moe_gmm"] == want_gmm,
+          f"serve {arch}: {launches['moe_gmm']} moe_gmm launches, expected {want_gmm}")
     return row
 
 
@@ -922,11 +951,24 @@ def full_logits(params, cfg, tokens) -> torch.Tensor:
     return logits[..., :cfg.vocab_size]
 
 
+def row_errs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max |a - b| over the last axis: one error per position."""
+    return (a.float() - b.float()).abs().amax(-1).reshape(-1)
+
+
+def quantiles(name: str, errs: torch.Tensor) -> dict:
+    """The median, 90th percentile and largest of per-position errors."""
+    q = torch.quantile(errs.float().cpu(), torch.tensor([0.5, 0.9, 1.0]))
+    return {f"{name}_p50": float(q[0]), f"{name}_p90": float(q[1]),
+            f"{name}_max": float(q[2]), f"{name}_count": int(errs.numel())}
+
+
 def decode_consistency(cfg, params, tokens, S0: int, lose_state: bool = False) -> dict:
     """Prefill ``tokens[:, :S0]`` and teacher-forced decode of the rest
     against the full forward's logits (tests/test_lm_consistency.py).  With
-    ``lose_state``, the control: the SSM states the prefill hands to decode
-    are zeroed, as a cache splice that dropped them would leave them."""
+    ``lose_state``, the control: the SSM states, or the attention keys and
+    values, that the prefill hands to decode are zeroed, as a cache splice
+    that dropped them would leave them."""
     from repro_torch.launch.serve import prefill_cache
     from repro_torch.model import lm
 
@@ -937,16 +979,21 @@ def decode_consistency(cfg, params, tokens, S0: int, lose_state: bool = False) -
         logits, cache = prefill_cache(params, cfg, tokens[:, :S0], S)
         err_p = max_err(logits[:, :V], ref[:, S0 - 1])
         p_ok, d_ok, errs = close(logits[:, :V], ref[:, S0 - 1], 2e-2), True, []
+        pos_errs = [row_errs(logits[:, :V], ref[:, S0 - 1])]
         if lose_state:
             for leaves in cache.values():
-                leaves["state"].zero_()
+                for name in ("state", "k", "v"):
+                    if name in leaves:
+                        leaves[name].zero_()
         for i in range(S0, S):
             logits, cache = lm.decode_step(params, cfg, cache, tokens[:, i], i)
             errs.append(max_err(logits[:, :V], ref[:, i]))
+            pos_errs.append(row_errs(logits[:, :V], ref[:, i]))
             d_ok = d_ok and close(logits[:, :V], ref[:, i], 3e-2)
     row = dict(dtype=cfg.dtype, B=B, S0=S0, S=S, lose_state=lose_state,
                prefill_max_abs_err=err_p, prefill_ok=p_ok, decode_ok=d_ok,
                decode_max_abs_err=max(errs), decode_err_by_step=errs[::16],
+               **quantiles("position_err", torch.cat(pos_errs)),
                logits_max_abs=float(ref.abs().max()), logits_std=float(ref.std()))
     print("  " + json.dumps({"consistency": row}), flush=True)
     return row
@@ -985,13 +1032,55 @@ def kernels_vs_off(cfg, params, tokens) -> dict:
     return row
 
 
+def engine_vs_isolated(cfg, params, held: bool = True) -> dict:
+    """Continuous batching against isolated generation: a 4-slot engine with
+    8 requests of 128-768 tokens, 32 new tokens each; every request's tokens
+    equal its isolated generation, or first differ at a near tie (``held``;
+    otherwise the first differences are only printed)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    rng = np.random.default_rng(3)
+    lens = [128, 256, 512, 768, 768, 512, 256, 128]
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, n).astype(np.int32),
+                    max_new=32) for i, n in enumerate(lens)]
+    engine = ServingEngine(cfg, params, slots=4, max_len=1024, device="cuda")
+    for r in reqs:
+        engine.submit(r)
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t0
+    check(len(done) == len(reqs), f"engine {cfg.name}: {len(done)} of {len(reqs)} requests done")
+    same, ties = 0, []
+    for r in sorted(done, key=lambda r: r.rid):
+        want, gaps = isolated(cfg, params, r.prompt, r.max_new, 1024)
+        if r.output == want:
+            same += 1
+            continue
+        k = next((i for i, (a, b) in enumerate(zip(r.output, want)) if a != b),
+                 min(len(r.output), len(want)))
+        gap = gaps[k] if k < len(gaps) else float("inf")
+        ties.append(dict(rid=r.rid, first_difference=k, top2_gap=gap))
+        print(f"  engine request {r.rid}: first difference at token {k}, top-2 logit gap "
+              f"{gap:.4g} (near-tie bound {NEAR_TIE})", flush=True)
+        check(gap < NEAR_TIE or not held,
+              f"engine {cfg.name} request {r.rid} differs from its isolated generation at "
+              f"token {k} with a top-2 gap {gap:.3g} >= {NEAR_TIE}")
+    serial = sum(len(r.output) - 1 for r in done)
+    check(engine.steps < serial, f"engine {cfg.name}: {engine.steps} ticks, serial {serial}")
+    eng = dict(arch=cfg.name, dtype=cfg.dtype, held=held, requests=len(reqs), slots=4,
+               ticks=engine.steps,
+               serial_ticks=serial, seconds=eng_s, equal_to_isolated=same, near_ties=ties,
+               tokens_per_s=sum(len(r.output) for r in done) / eng_s)
+    print("  " + json.dumps({"engine": eng}), flush=True)
+    return eng
+
+
 def phase_serve() -> dict:
     import dataclasses
 
-    from repro_torch.model import lm
-    from repro_torch.serving import Request, ServingEngine
-
     from repro_torch.launch.serve import run_serving
+    from repro_torch.model import lm
 
     print("phase 7: LM serving, the main path", flush=True)
     # warm-up (first-call set-up of the libraries off the main run's clock)
@@ -1053,54 +1142,246 @@ def phase_serve() -> dict:
                                   f"use_kernels='off' by only {ctrl:.3g} <= {tol}")
     del params32
 
-    # continuous batching against isolated generation
-    rng = np.random.default_rng(3)
-    lens = [128, 256, 512, 768, 768, 512, 256, 128]
-    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab_size, n).astype(np.int32),
-                    max_new=32) for i, n in enumerate(lens)]
-    engine = ServingEngine(cfg, params, slots=4, max_len=1024, device="cuda")
-    for r in reqs:
-        engine.submit(r)
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    eng_s = time.perf_counter() - t0
-    check(len(done) == len(reqs), f"engine: {len(done)} of {len(reqs)} requests done")
-    same, ties = 0, []
-    for r in sorted(done, key=lambda r: r.rid):
-        want, gaps = isolated(cfg, params, r.prompt, r.max_new, 1024)
-        if r.output == want:
-            same += 1
-            continue
-        k = next((i for i, (a, b) in enumerate(zip(r.output, want)) if a != b),
-                 min(len(r.output), len(want)))
-        gap = gaps[k] if k < len(gaps) else float("inf")
-        ties.append(dict(rid=r.rid, first_difference=k, top2_gap=gap))
-        print(f"  engine request {r.rid}: first difference at token {k}, top-2 logit gap "
-              f"{gap:.4g} (near-tie bound {NEAR_TIE})", flush=True)
-        check(gap < NEAR_TIE, f"engine request {r.rid} differs from its isolated generation "
-                              f"at token {k} with a top-2 gap {gap:.3g} >= {NEAR_TIE}")
-    serial = sum(len(r.output) - 1 for r in done)
-    check(engine.steps < serial, f"engine: {engine.steps} ticks, serial {serial}")
-    eng = dict(requests=len(reqs), slots=4, ticks=engine.steps, serial_ticks=serial,
-               seconds=eng_s, equal_to_isolated=same, near_ties=ties,
-               tokens_per_s=sum(len(r.output) for r in done) / eng_s)
-    print("  " + json.dumps({"engine": eng}), flush=True)
-    del params, engine
+    eng = engine_vs_isolated(cfg, params)
+    del params
 
     smollm = serve_main("smollm-135m", "smollm")
     return dict(main, profiled_decode=prof, consistency=consistency, kernels_vs_off=kvo,
                 engine=eng, smollm=smollm)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the grouped-matmul kernel against its plain version
+# ---------------------------------------------------------------------------
+
+GMM_SHAPES = {
+    # name: (E, C, d, f, dtype)
+    "prefill": (64, 1984, 2048, 1408, torch.bfloat16),  # gate / up: 8 rows x C=248
+    "down": (64, 1984, 1408, 2048, torch.bfloat16),
+    "decode8": (64, 8, 2048, 1408, torch.bfloat16),  # a decode step of 8 sequences
+    "decode6": (64, 6, 2048, 1408, torch.bfloat16),  # one sequence decoded alone
+    "f32": (64, 248, 2048, 1408, torch.float32),  # one 2048-token prompt, float32
+}
+GMM_TOL = {torch.bfloat16: 3e-2, torch.float32: 3e-4}  # tests/test_kernels.py:116
+
+
+def gmm_work(E, C, d, f, dtype) -> dict:
+    esz = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    return bound(2 * E * C * d * f, esz * (E * C * d + E * d * f + E * C * f), peak)
+
+
+def phase_gmm() -> dict:
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
+
+    print("phase 8: grouped-matmul kernel against its plain version on the card", flush=True)
+    rows = {}
+    for seed, (shape, (E, C, d, f, dtype)) in enumerate(GMM_SHAPES.items()):
+        g = torch.Generator(device="cuda").manual_seed(300 + seed)
+        x = torch.randn(E, C, d, generator=g, device="cuda").to(dtype)
+        w = (torch.randn(E, d, f, generator=g, device="cuda") * 0.05).to(dtype)
+        got, want = gmm.grouped_matmul_cuda(x, w), grouped_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        tol = GMM_TOL[dtype]
+        check(close(got, want, tol), f"moe_gmm {shape}: kernel not within {tol} of plain "
+                                     f"(max abs err {max_err(got, want):.3g})")
+        check(bool(torch.isfinite(got).all()), f"moe_gmm {shape}: non-finite kernel output")
+        if shape == "decode8":
+            # every row summed in one order whatever C and the tile height (16,
+            # 64 or 128 rows): the same rows launched at C = 6, 1, 40 and 128
+            more = torch.randn(E, 120, d, generator=g, device="cuda").to(dtype)
+            same = [
+                torch.equal(gmm.grouped_matmul_cuda(x[:, :6].contiguous(), w), got[:, :6]),
+                torch.equal(gmm.grouped_matmul_cuda(x[:, 5:6].contiguous(), w), got[:, 5:6]),
+                torch.equal(gmm.grouped_matmul_cuda(
+                    torch.cat([x, more[:, :32]], 1), w)[:, :8], got),
+                torch.equal(gmm.grouped_matmul_cuda(torch.cat([x, more], 1), w)[:, :8], got),
+            ]
+            print(f"  moe_gmm rows bitwise equal across C = 8 / 6, 1, 40, 128: {same}",
+                  flush=True)
+            check(all(same), f"moe_gmm: a row's result depends on C or its tile ({same})")
+
+        def kern():
+            return gmm.grouped_matmul_cuda(x, w)
+
+        def plain():
+            return grouped_matmul_ref(x, w)
+
+        def lib():  # the library yardstick, never called by the port
+            return torch.bmm(x, w)
+
+        row = dict(
+            shape=shape, kernel="moe_gmm", E=E, C=C, d=d, f=f, dtype=str(dtype),
+            max_abs_err=max_err(got, want), max_abs_y=float(want.float().abs().max()),
+            ms=device_ms(kern, reps_for(kern)), plain_ms=device_ms(plain, reps_for(plain)),
+            library_ms=device_ms(lib, reps_for(lib)), **gmm_work(E, C, d, f, dtype),
+        )
+        rows[shape] = row
+        print("  " + json.dumps(row), flush=True)
+        del x, w, got, want
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: MoE serving, this slice's main path
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-moe-16b"  # served at SERVE's batch, prompt length and new tokens
+# float32 at 28 layers would take 67.5 GB of weights; the float32 checks run
+# the published widths at this depth
+MOE_F32_LAYERS = 4
+# bf16 at full width: the forward and the step-by-step decode (and the kernel
+# and plain expert products) round at other points, and a token whose k-th
+# and (k+1)-th router logits are within that rounding takes other experts, a
+# jump of up to about 1 in its logits.  So the bf16 checks hold the median
+# position (one error per position: max |logit difference| over the
+# vocabulary), which the few re-routed positions do not move, and print the
+# 90th percentile and the largest.  The limit lies between the sound runs'
+# medians (0.19-0.21 on an H100 80GB HBM3) and their controls' (the prompt's
+# keys and values lost before decode: 5.7; the first layer's routed experts
+# lost: 1.5); the run fails if a control does not exceed it.  Float32, where
+# only summation order differs and re-routing needs a near-tie at 1e-6, is
+# held to the reference's tolerances.
+MOE_BF16_LOGITS_TOL = 0.5
+MOE_SEEDS = {"decode": (31, 32, 33), "kernels_vs_off": (41, 42, 43)}
+# the lost-experts controls: (held against the limit, printed beside it)
+MOE_CONTROL_LAYERS = {"float32": ((0, MOE_F32_LAYERS - 1), ()), "bfloat16": ((0,), (27,))}
+
+
+def no_drop(cfg):
+    """The config with a capacity no assignment can overflow (C >= tokens),
+    so that the full forward and prefill + decode route the same way."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def moe_kernels_vs_off(cfg, params, tokens, control_layers) -> dict:
+    """The kernel path against ``use_kernels="off"`` on one prefill: the
+    forward's logits at every position, one error per position.  Each
+    control runs the kernel path with the routed experts of one layer lost
+    (its down projection zeroed, then restored)."""
+    import dataclasses
+
+    from repro_torch.model import lm
+
+    off = dataclasses.replace(cfg, use_kernels="off")
+    V = cfg.vocab_size
+    with torch.inference_mode():
+        l_k, _ = lm.prefill(params, cfg, tokens=tokens)
+        l_o, _ = lm.prefill(params, off, tokens=tokens)
+    f_o = full_logits(params, off, tokens)
+    row = dict(dtype=cfg.dtype, layers=cfg.num_layers, B=tokens.shape[0], S=tokens.shape[1],
+               last_logits_max_abs_err=max_err(l_k[:, :V], l_o[:, :V]),
+               **quantiles("position_err", row_errs(full_logits(params, cfg, tokens), f_o)))
+    w_down = params["layers"]["pos0"]["ffn"]["w_down"]
+    for layer in control_layers:
+        with torch.no_grad():
+            saved = w_down[layer].clone()
+            w_down[layer].zero_()
+            ctrl = row_errs(full_logits(params, cfg, tokens), f_o)
+            w_down[layer].copy_(saved)
+        row.update(quantiles(f"control{layer}_position_err", ctrl))
+    row.update(logits_max_abs=float(f_o.abs().max()), logits_std=float(f_o.std()))
+    print("  " + json.dumps({"kernels_vs_off": row}), flush=True)
+    return row
+
+
+def phase_moe_serve() -> dict:
+    import dataclasses
+
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.model import lm
+    from repro_torch.pytree import tree_leaves
+
+    print("phase 9: MoE serving, the main path", flush=True)
+    run_serving(MOE_ARCH, reduced=False, batch=SERVE["batch"], prompt_len=256, max_new=4,
+                device="cuda", quiet=True)  # warm-up
+    print(f"  allocated before the main run: {torch.cuda.memory_allocated() / 1e9:.3f} GB",
+          flush=True)
+    main = serve_main(MOE_ARCH, "moe")
+    cfg = get_cfg(MOE_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  init_model: {n_params} parameters in {init_s:.3f}s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated", flush=True)
+
+    prof = profiled_decode(cfg, params)
+    print("  " + json.dumps({"profiled_decode": prof}), flush=True)
+
+    def tokens_of(seed: int, shape=(2, 768)) -> torch.Tensor:
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(3, cfg.vocab_size, shape, generator=g, dtype=torch.int32).cuda()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                num_layers=MOE_F32_LAYERS)
+    params32 = lm.init_model(cfg32, 0, device="cuda")
+    seeds = MOE_SEEDS["decode"]
+    nd = no_drop(cfg)
+    consistency = {
+        "float32": [decode_consistency(no_drop(cfg32), params32, tokens_of(seeds[0]), S0=512)],
+        "bfloat16": [decode_consistency(nd, params, tokens_of(s), S0=512) for s in seeds],
+        "bfloat16_control": [decode_consistency(nd, params, tokens_of(seeds[0]), S0=512,
+                                                lose_state=True)],
+    }
+    for row in consistency["float32"]:
+        check(row["prefill_ok"] and row["decode_ok"],
+              f"moe float32: prefill / decode logits off the forward by "
+              f"{row['prefill_max_abs_err']:.3g} / {row['decode_max_abs_err']:.3g}")
+    for row in consistency["bfloat16"]:
+        err = row["position_err_p50"]
+        check(err <= MOE_BF16_LOGITS_TOL, f"moe bfloat16: the median position's decode logits "
+                                          f"off the forward by {err:.3g}")
+    for row in consistency["bfloat16_control"]:
+        ctrl = row["position_err_p50"]
+        check(ctrl > MOE_BF16_LOGITS_TOL, f"moe bfloat16: the lost-cache control's median "
+                                          f"position off the forward by only {ctrl:.3g} <= "
+                                          f"{MOE_BF16_LOGITS_TOL}")
+
+    kvo = {"float32": [], "bfloat16": []}
+    for dtype, c, p, tol, run_seeds in (
+        ("float32", cfg32, params32, 1e-3, MOE_SEEDS["kernels_vs_off"][:1]),
+        ("bfloat16", cfg, params, MOE_BF16_LOGITS_TOL, MOE_SEEDS["kernels_vs_off"]),
+    ):
+        held, shown = MOE_CONTROL_LAYERS[dtype]
+        for seed in run_seeds:
+            row = moe_kernels_vs_off(c, p, tokens_of(seed, (1, SERVE["prompt_len"])),
+                                     held + shown)
+            kvo[dtype].append(row)
+            err = row["position_err_p50"]
+            check(err <= tol, f"moe {dtype}: the median position's logits off "
+                              f"use_kernels='off' by {err:.3g} > {tol}")
+            for layer in held:
+                ctrl = row[f"control{layer}_position_err_p50"]
+                check(ctrl > tol, f"moe {dtype}: the lost-experts control (layer {layer}) off "
+                                  f"use_kernels='off' by only {ctrl:.3g} <= {tol}")
+
+    # the engine against isolated generation: held in float32; in bf16 a
+    # batch of 4 and a lone request round differently, and a re-routed token
+    # moves the logits by more than NEAR_TIE allows for, so there the first
+    # differences are printed
+    eng32 = engine_vs_isolated(cfg32, params32)
+    del params32
+    eng = engine_vs_isolated(cfg, params, held=False)
+    del params
+    return dict(main, init_seconds=init_s, parameters=n_params, profiled_decode=prof,
+                consistency=consistency, kernels_vs_off=kvo, engine=eng, engine_float32=eng32)
+
+
 def build_all():
     """Build every kernel library at once: one nvcc per source, in parallel."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.moe_gmm import kernel as gmm
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.stream_fused import kernel as stream
 
-    mods = (stream, flash, rms, ssd)
+    mods = (stream, flash, rms, ssd, gmm)
     errors = []
 
     def run(mod):
@@ -1143,6 +1424,8 @@ def main() -> int:
     train = phase_train()
     norm_rows, ssd_rows = phase_norm_ssd()
     serve = phase_serve()
+    gmm_rows = phase_gmm()
+    moe = phase_moe_serve()
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
@@ -1186,6 +1469,14 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
+    row = gmm_rows["prefill"]
+    record["kernels"].append(dict(
+        name="moe_gmm", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
+        replaces="src/repro/kernels/moe_gmm/kernel.py:37", launches=moe["launches"]["moe_gmm"],
+        max_abs_err=max(r["max_abs_err"] for r in gmm_rows.values()),
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+    ))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

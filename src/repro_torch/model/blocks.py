@@ -1,8 +1,8 @@
-"""Block assembly: pre-norm mixer (attention or SSD) + optional dense SwiGLU
-FFN (port of ``repro/model/blocks.py``).
+"""Block assembly: pre-norm mixer (attention or SSD) + optional FFN (dense
+SwiGLU or MoE) (port of ``repro/model/blocks.py``).
 
-Every norm runs through ``layers.rms_norm`` in ``cfg.use_kernels`` mode.  The
-MoE FFN raises ``NotImplementedError`` naming its ROADMAP item (A8).
+Every norm runs through ``layers.rms_norm`` in ``cfg.use_kernels`` mode; the
+MoE FFN (``model/moe.py``) returns the block's aux losses.
 """
 
 from __future__ import annotations
@@ -11,27 +11,20 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import FFN_DENSE, FFN_MOE, FFN_NONE, MIXER_ATTN, BlockKind
+from repro_torch.configs.base import FFN_DENSE, FFN_NONE, MIXER_ATTN, BlockKind
 from repro_torch.model.attention import attention, attn_defs
 from repro_torch.model.layers import mlp_defs, norm_defs, rms_norm, swiglu
+from repro_torch.model.moe import moe_defs, moe_ffn
 from repro_torch.model.ssm import init_ssm_cache, ssm_defs, ssm_mixer
 
 
-def _check_kind(kind: BlockKind) -> None:
-    if kind.ffn == FFN_MOE:
-        raise NotImplementedError(
-            "MoE FFN blocks are not ported yet: ROADMAP A8 (model/moe.py)"
-        )
-
-
 def block_defs(cfg, kind: BlockKind) -> Dict[str, Any]:
-    _check_kind(kind)
     d = cfg.d_model
     defs: Dict[str, Any] = {"norm_mixer": norm_defs(d)}
     defs["mixer"] = attn_defs(cfg) if kind.mixer == MIXER_ATTN else ssm_defs(cfg)
     if kind.ffn != FFN_NONE:
         defs["norm_ffn"] = norm_defs(d)
-        defs["ffn"] = mlp_defs(d, cfg.d_ff)
+        defs["ffn"] = mlp_defs(d, cfg.d_ff) if kind.ffn == FFN_DENSE else moe_defs(cfg)
     return defs
 
 
@@ -60,8 +53,8 @@ def block_fwd(
     ring: bool = False,
     return_cache: bool = False,
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
-    """Returns (x, new_cache, aux); aux is empty (no MoE)."""
-    _check_kind(kind)
+    """Returns (x, new_cache, aux); aux is empty unless the FFN is MoE."""
+    aux: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, params["norm_mixer"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
     if kind.mixer == MIXER_ATTN:
         y, new_cache = attention(
@@ -78,8 +71,12 @@ def block_fwd(
             return_cache=return_cache or cache is not None,
         )
     x = x + y
-    if kind.ffn == FFN_DENSE:
+    if kind.ffn != FFN_NONE:
         h = rms_norm(x, params["norm_ffn"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
-        x = x + swiglu(h, params["ffn"]["w_gate"], params["ffn"]["w_up"],
+        if kind.ffn == FFN_DENSE:
+            f = swiglu(h, params["ffn"]["w_gate"], params["ffn"]["w_up"],
                        params["ffn"]["w_down"])
-    return x, new_cache, {}
+        else:
+            f, aux = moe_ffn(params["ffn"], h, cfg)
+        x = x + f
+    return x, new_cache, aux

@@ -7,9 +7,10 @@ the logical axes are kept for the sharding rules of a later slice and are not
 read on one card.
 
 Init draws from an explicit ``torch.Generator`` with the reference's rules
-(fan-in scaled normal at the def's scale, zeros, ones, the SSM rules).  The
-two frameworks give different numbers from one seed, so tests carry the
-reference's weights across with ``model/convert.py``.
+(fan-in scaled normal at the def's scale, zeros, ones, the SSM rules), on
+the CPU or in place on the card (whose numbers differ from the CPU's for one
+seed).  The two frameworks give different numbers from one seed, so tests
+carry the reference's weights across with ``model/convert.py``.
 
 ``rms_norm`` takes the kernel mode (``cfg.use_kernels``, passed by every
 caller): ``"off"`` is the reference's plain function, ``"cuda"`` the RMSNorm
@@ -31,7 +32,7 @@ from typing import Any, Dict, Tuple, Union
 import torch
 
 from repro_torch.paramdef import ParamDef, is_paramdef
-from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -67,38 +68,54 @@ def stack_defs(defs: PyTree, n: int) -> PyTree:
     return tree_map(f, defs, is_leaf=is_paramdef)
 
 
-def init_leaf(d: ParamDef, gen: torch.Generator, default_dtype) -> torch.Tensor:
+def init_leaf(d: ParamDef, gen: torch.Generator, default_dtype,
+              device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """One leaf by its def's rule, drawn from ``gen`` on ``device`` (the
+    generator's device).  On a card the fan-in scaled normal is drawn in
+    place in the leaf's type, with no float32 copy; the CPU draws it in
+    float32 and casts."""
     dtype = torch_dtype(d.dtype or default_dtype)
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dtype)
+        return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=dtype)
+        return torch.ones(d.shape, dtype=dtype, device=device)
     if d.init == "ssm_a":  # A_log: log of uniform [1, 16]
-        u = torch.rand(d.shape, generator=gen, dtype=torch.float32) * 15.0 + 1.0
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32, device=device) * 15.0 + 1.0
         return torch.log(u).to(dtype)
     if d.init == "ssm_dt":  # dt bias: inverse-softplus of uniform [1e-3, 1e-1]
         lo, hi = math.log(1e-3), math.log(1e-1)
-        u = torch.rand(d.shape, generator=gen, dtype=torch.float32) * (hi - lo) + lo
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32, device=device) * (hi - lo) + lo
         dt = torch.exp(u)
         return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     # fan-in scaled normal
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     scale = d.scale if d.scale else 1.0 / math.sqrt(fan_in)
+    if device.type != "cpu":
+        return torch.empty(d.shape, dtype=dtype, device=device).normal_(0.0, scale, generator=gen)
     return (torch.randn(d.shape, generator=gen, dtype=torch.float32) * scale).to(dtype)
 
 
 def init_params(defs: PyTree, seed: int = 0, default_dtype="bfloat16",
                 device: Union[None, str, torch.device] = None) -> PyTree:
-    """Draw every leaf on the CPU from one generator seeded with ``seed``, in
-    leaf order, then move it to ``device`` (``None``: ``cuda:0``); leaves
-    require grad."""
+    """Draw every leaf on ``device`` (``None``: ``cuda:0``) from one generator
+    of that device seeded with ``seed``, in leaf order; leaves require grad.
+
+    A card draws in place (a full-width MoE model's expert leaves are 10 GB
+    each in bfloat16), so a card's weights differ from the CPU's for the same
+    seed, and the CPU's are the ones the tests see."""
     device = resolve_device(device, "init_params")
     leaves, treedef = tree_flatten(defs, is_leaf=is_paramdef)
-    gen = torch.Generator().manual_seed(seed)
-    out = [
-        init_leaf(d, gen, default_dtype).to(device).requires_grad_(True) for d in leaves
-    ]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = [init_leaf(d, gen, default_dtype, device).requires_grad_(True) for d in leaves]
     return tree_unflatten(treedef, out)
+
+
+def records_grad(params, x: torch.Tensor) -> bool:
+    """Whether autograd records a function of ``params`` (a tree) and ``x``:
+    a forward-only kernel refuses to run then."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in tree_leaves(params))
+    )
 
 
 # ---------------------------------------------------------------------------

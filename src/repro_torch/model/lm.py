@@ -21,8 +21,12 @@ and returns it (the reference returns an updated copy): the attention blocks
 write the new key/value into their slices, and the SSM blocks' new state and
 conv windows are copied into theirs.
 
+The forward sums the MoE blocks' aux losses (load balance, router z-loss)
+per period and then over periods, as the reference's ``_acc_aux`` and scan
+do, in every branch (collecting caches, without gradients, recomputed).
+
 Not ported yet: ``batch_chunks > 1`` and the ``save_dispatch`` remat policy
-(MoE only) raise (ROADMAP A8).
+(MoE training) raise (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -104,6 +108,19 @@ def _vocab_mask(cfg, device=None) -> torch.Tensor:
     return torch.where(idx < cfg.vocab_size, 0.0, -1e30).float()
 
 
+AUX_KEYS = ("moe_balance", "moe_zloss")
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
+
+
+def _acc_aux(tot, aux):
+    if not aux:
+        return tot
+    return {k: tot[k] + aux[k] for k in tot}
+
+
 def _unstack(stacked: PyTree, n: int) -> List[PyTree]:
     """One tree per layer from a tree of (n, ...) leaves; each leaf is
     unbound once, so the backward writes each layer's gradient into one
@@ -135,24 +152,28 @@ def forward_hidden(
 
     def block(kind):
         def f(p, x):
-            return block_fwd(p, x, kind, cfg, positions)[0]
+            x, _, aux = block_fwd(p, x, kind, cfg, positions)
+            return x, aux
 
         return f
 
     caches: Dict[str, List[Any]] = {f"pos{i}": [] for i in range(len(pattern))}
+    period_aux = []
     for period in range(cfg.num_periods):
+        aux_tot = _zero_aux(x.device)
         for i, kind in enumerate(pattern):
             p = layers[f"pos{i}"][period]
             if collect_cache:
-                x, cache, _ = block_fwd(p, x, kind, cfg, positions, return_cache=True)
+                x, cache, aux = block_fwd(p, x, kind, cfg, positions, return_cache=True)
                 caches[f"pos{i}"].append(cache)
             elif cfg.remat == "none" or not torch.is_grad_enabled():
-                x = block(kind)(p, x)
+                x, aux = block(kind)(p, x)
             else:
-                x = checkpoint(block(kind), p, x, use_reentrant=False,
-                               preserve_rng_state=False)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"moe_balance": zero, "moe_zloss": zero}
+                x, aux = checkpoint(block(kind), p, x, use_reentrant=False,
+                                    preserve_rng_state=False)
+            aux_tot = _acc_aux(aux_tot, aux)
+        period_aux.append(aux_tot)
+    aux = {k: torch.sum(torch.stack([a[k] for a in period_aux]), dim=0) for k in AUX_KEYS}
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
     if not collect_cache:
         return x, aux, None

@@ -1,0 +1,190 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch
+(port of ``repro/model/moe.py``, one card, no mesh).
+
+Dispatch groups are batch rows, as in the reference: each row sorts its
+(seq x k) assignments by expert and fills a capacity buffer of C slots per
+expert; decode-sized workloads (``B * S <= 4096``) use one global group.
+There is no mesh, so the reference's sequence shards are one per row
+(``_seq_shards`` is 1) and its sharding constraints and ``checkpoint_name``
+have no counterpart.
+
+The groups are handled together: group ``g`` writes its slot ``s`` of expert
+``e`` to row ``g * C + s`` of one ``(E, G * C, d)`` buffer, so the expert
+products see one contiguous operand per weight (the reference's ``(G, E, C,
+d)`` einsum computes the same rows).  Assignments past the capacity are
+dropped on write and read back as zeros, as ``mode="drop"`` / ``mode="fill"``
+do.
+
+Bit-for-bit choices, where the reference's semantics leave the port a
+choice:
+
+* **top-k** is a stable descending sort of the probabilities, first k taken:
+  equal probabilities go to the lower expert index, as ``jax.lax.top_k``.
+* **the sort by expert** is stable (``jnp.argsort`` is), so slots fill in
+  token order.
+* **the combine** adds each token's k weighted rows one at a time in
+  ascending expert order, from zeros in the buffer's type, rounding after
+  every add: the order of the reference's scatter-add on the CPU, and free of
+  atomics, so a token's output does not depend on the batch around it.
+
+The expert products are ``grouped_matmul`` (the CUDA kernel on CUDA tensors,
+its plain version on CPU tensors) under ``cfg.use_kernels == "cuda"`` and the
+plain batched matmul under ``"off"``; both round the gate and up products to
+the activation type before ``silu(gate) * up``, as the reference does.  The
+kernel is forward only: under autograd the ``"cuda"`` path raises (MoE
+training, ROADMAP A8); ``"off"`` trains through plain ops.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.model.layers import ParamDef, dense, mlp_defs, records_grad, silu, swiglu
+
+
+def moe_defs(cfg) -> Dict[str, ParamDef]:
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    defs = {
+        "router": ParamDef((d, E), ("fsdp", None), dtype="float32"),
+        "w_gate": ParamDef((E, d, f), ("experts", "fsdp", None)),
+        "w_up": ParamDef((E, d, f), ("experts", "fsdp", None)),
+        "w_down": ParamDef((E, f, d), ("experts", None, "fsdp")),
+    }
+    if cfg.num_shared_experts:
+        defs["shared"] = mlp_defs(d, cfg.num_shared_experts * f)
+    return defs
+
+
+def _capacity(n_tokens: int, k: int, num_experts: int, factor: float) -> int:
+    c = int(n_tokens * k * factor / num_experts) + 1
+    c = -(-c // 8) * 8  # round up to multiple of 8
+    return min(c, n_tokens * k)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, ties to the lower index."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _group_dispatch(x: torch.Tensor, probs: torch.Tensor, k: int, capacity: int):
+    """G dispatch groups at once.
+
+    x: (G, N, d); probs: (G, N, E) float32.  Returns (buf (E, G*C, d), meta):
+    meta holds, per token and in ascending expert order, its k buffer rows,
+    whether each was kept, and its gates, then the (G, E) counts and the
+    top-k experts.
+    """
+    G, N, d = x.shape
+    E = probs.shape[-1]
+    C = capacity
+    dev = x.device
+    gate_vals, gate_idx = _top_k(probs, k)  # (G, N, k)
+    gate_vals = gate_vals / (torch.sum(gate_vals, dim=-1, keepdim=True) + 1e-9)
+
+    M = N * k
+    e_flat = gate_idx.reshape(G, M)
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    e_sorted = torch.gather(e_flat, 1, order)
+    t_sorted = order // k
+    g_base = torch.arange(G, device=dev)[:, None]
+    counts = torch.bincount((e_flat + g_base * E).reshape(-1), minlength=G * E).reshape(G, E)
+    offsets = torch.cumsum(counts, dim=-1) - counts
+    slot = torch.arange(M, device=dev) - torch.gather(offsets, 1, e_sorted)
+    kept = slot < C
+
+    # buffer row of each kept assignment; the dropped ones go to one spare row
+    GC = G * C
+    rows = e_sorted * GC + g_base * C + slot
+    dest = torch.where(kept, rows, E * GC).reshape(-1)
+    src = torch.full((E * GC + 1,), G * N, dtype=torch.long, device=dev)
+    src.index_copy_(0, dest, (t_sorted + g_base * N).reshape(-1))
+    x_pad = torch.cat([x.reshape(G * N, d), x.new_zeros((1, d))])
+    buf = x_pad[src[:E * GC]].reshape(E, GC, d)
+
+    # per token: its assignments' rows in ascending expert order
+    row_of = torch.empty_like(rows).scatter_(1, order, rows).reshape(G, N, k)
+    kept_of = torch.empty_like(kept).scatter_(1, order, kept).reshape(G, N, k)
+    asc = torch.argsort(gate_idx, dim=-1)  # k distinct experts per token
+    meta = (
+        torch.gather(row_of, 2, asc).reshape(G * N, k),
+        torch.gather(kept_of, 2, asc).reshape(G * N, k),
+        torch.gather(gate_vals, 2, asc).reshape(G * N, k),
+        counts,
+        gate_idx,
+    )
+    return buf, meta
+
+
+def _group_combine(out_buf: torch.Tensor, meta) -> torch.Tensor:
+    """out_buf: (E, G*C, d) -> (G*N, d): each token's weighted rows added in
+    ascending expert order from zeros, one rounding per add."""
+    rows, kept, gates = meta[:3]
+    d = out_buf.shape[-1]
+    flat = out_buf.reshape(-1, d)
+    last = flat.shape[0] - 1
+    y = torch.zeros((rows.shape[0], d), dtype=out_buf.dtype, device=out_buf.device)
+    for j in range(rows.shape[1]):
+        v = flat[rows[:, j].clamp(max=last)] * gates[:, j, None].to(out_buf.dtype)
+        y = y + v.masked_fill(~kept[:, j, None], 0)
+    return y
+
+
+def _gmm(x: torch.Tensor, w: torch.Tensor, kernels: str) -> torch.Tensor:
+    """(E, C, d) x (E, d, f) -> (E, C, f) in x.dtype, float32 accumulation."""
+    if kernels == "cuda":
+        from repro_torch.kernels.moe_gmm.ops import grouped_matmul
+
+        return grouped_matmul(x, w)
+    if kernels != "off":
+        raise ValueError(f"use_kernels={kernels!r}, not 'off' or 'cuda'")
+    return torch.matmul(x, w)
+
+
+def _expert_ffn(params, buf: torch.Tensor, kernels: str) -> torch.Tensor:
+    """Grouped SwiGLU: buf (E, C, d) -> (E, C, d); the gate and up products
+    are rounded to buf.dtype before ``silu(gate) * up``."""
+    h = silu(_gmm(buf, params["w_gate"], kernels)) * _gmm(buf, params["w_up"], kernels)
+    return _gmm(h, params["w_down"], kernels)
+
+
+def _aux_losses(probs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Switch load-balance loss per group: probs (G, N, E), counts (G, E) ->
+    (G,)."""
+    E = probs.shape[-1]
+    importance = torch.mean(probs, dim=1)
+    total = torch.sum(counts, dim=-1, keepdim=True)
+    load = counts.float() / total.clamp_min(1)
+    return E * torch.sum(importance * load, dim=-1)
+
+
+def moe_ffn(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (y, aux)."""
+    if cfg.use_kernels == "cuda" and records_grad(params, x):
+        raise NotImplementedError(
+            "the grouped-matmul kernel is forward only: MoE training needs its backward "
+            "(ROADMAP A8, MoE training); use_kernels='off' trains through the plain path"
+        )
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+
+    logits = dense(x, params["router"].to(x.dtype)).float()  # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+
+    # one global group for decode-sized workloads, else one group per row
+    G, N = (1, B * S) if B * S <= 4096 else (B, S)
+    cap = _capacity(N, k, E, cfg.capacity_factor)
+    p_g = probs.reshape(G, N, E)
+    buf, meta = _group_dispatch(x.reshape(G, N, d), p_g, k, cap)
+    out = _expert_ffn(params, buf, cfg.use_kernels)
+    y = _group_combine(out, meta).reshape(B, S, d)
+    balance = torch.mean(_aux_losses(p_g, meta[3]))
+
+    if cfg.num_shared_experts:
+        sh = params["shared"]
+        y = y + swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
+    aux = {"moe_balance": balance.float(), "moe_zloss": z_loss.float()}
+    return y, aux

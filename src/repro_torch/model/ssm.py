@@ -27,7 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.model.layers import ParamDef, dense, rms_norm, silu
+from repro_torch.model.layers import ParamDef, dense, records_grad, rms_norm, silu
 
 
 def ssm_defs(cfg) -> Dict[str, ParamDef]:
@@ -151,12 +151,6 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None):
     }
 
 
-def _records_grad(params, x: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and (
-        x.requires_grad or any(p.requires_grad for p in params.values())
-    )
-
-
 def ssm_mixer(
     params,
     x: torch.Tensor,  # (B, S, d)
@@ -188,7 +182,7 @@ def ssm_mixer(
         cc = silu(_causal_conv(cp, params["conv_c"]))
         xh = xc.reshape(B, S, nh, hd)
         if cfg.use_kernels == "cuda":
-            if _records_grad(params, x):
+            if records_grad(params, x):
                 raise NotImplementedError(
                     "the SSD scan kernel is forward only: SSM training needs an SSD "
                     "backward (ROADMAP A8, SSM training); use_kernels='off' trains "

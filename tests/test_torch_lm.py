@@ -12,6 +12,8 @@ The reference's steps are built directly (no mesh, no sharding context).
 """
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +34,7 @@ from repro_torch.model import lm
 from repro_torch.model.attention import attention
 from repro_torch.model.convert import params_from_numpy, params_to_numpy
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
-from repro_torch.pytree import tree_paths
+from repro_torch.pytree import tree_flatten, tree_map, tree_paths, tree_unflatten
 
 JMODE = {"off": "off", "cuda": "interpret"}  # port use_kernels -> JAX use_pallas
 
@@ -175,12 +177,35 @@ def test_bf16_forward_loss_matches_reference():
     np.testing.assert_allclose(float(loss), float(jloss), atol=2e-2, rtol=2e-2)
 
 
+def test_tree_helpers_release_their_leaves_without_the_collector():
+    """The tree walkers form no reference cycle: a parameter tree is freed as
+    soon as its last reference goes, not at the next cyclic collection (on
+    a card a lingering tree is a second copy of the weights)."""
+    tree = {"a": [torch.ones(3), (torch.zeros(2),)], "b": {"c": torch.ones(1)}}
+    ref = weakref.ref(tree["b"]["c"])
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        leaves, treedef = tree_flatten(tree)
+        tree = tree_unflatten(treedef, leaves)
+        tree = tree_map(lambda t: t * 1, tree)
+        tree_paths(tree)
+        del leaves, tree
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_unported_paths_raise():
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        lm.model_defs(get_config("deepseek-moe-16b").reduced())
     tparams = lm.init_model(tcfg, 0, device="cpu")
     tokens = torch.zeros(2, 64, dtype=torch.int32)
+    # the grouped-matmul kernel is forward only: MoE training through it raises
+    ecfg = get_config("deepseek-moe-16b").reduced()
+    eparams = lm.init_model(ecfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8, MoE training"):
+        lm.lm_loss(eparams, ecfg, {"tokens": tokens[:, :16], "labels": tokens[:, :16]})
     with pytest.raises(NotImplementedError, match="batch_chunks"):
         lm.forward_hidden(tparams, dataclasses.replace(tcfg, batch_chunks=2), tokens)
     # the SSD scan kernel is forward only: training through it raises

@@ -37,9 +37,13 @@ from repro_torch.model import lm
 from repro_torch.model.convert import params_from_numpy
 from repro_torch.serving import Request, ServingEngine
 
-ARCHS = ["smollm-135m", "mamba2-130m"]
-# mamba2 reduced has a chunk of 8: prompts of at most 8 tokens or a multiple of 8
-PROMPT_LENS = {"smollm-135m": (5, 9, 7, 12, 4), "mamba2-130m": (5, 8, 7, 16, 4)}
+ARCHS = ["smollm-135m", "mamba2-130m", "deepseek-moe-16b", "jamba-v0.1-52b",
+         "qwen3-moe-235b-a22b"]
+# the SSM configs' reduced chunk is 8: prompts of at most 8 tokens or a multiple of 8
+ATTN_LENS, SSM_LENS = (5, 9, 7, 12, 4), (5, 8, 7, 16, 4)
+PROMPT_LENS = {"smollm-135m": ATTN_LENS, "mamba2-130m": SSM_LENS,
+               "deepseek-moe-16b": ATTN_LENS, "jamba-v0.1-52b": SSM_LENS,
+               "qwen3-moe-235b-a22b": ATTN_LENS}
 
 
 def _cfgs(arch, mode="cuda", dtype="float32"):
@@ -53,6 +57,13 @@ def _params(jcfg, tcfg, seed=0):
     jparams = jlm.init_model(jcfg, jax.random.PRNGKey(seed))
     as_np = jax.tree.map(lambda a: np.asarray(a, np.float32), jparams)
     return jparams, params_from_numpy(as_np, tcfg, device="cpu")
+
+
+def _jax_steps(jcfg):
+    """The JAX prefill and decode step, jitted (each eager call would trace
+    the layer scan anew)."""
+    return (jax.jit(lambda p, t: jlm.prefill(p, jcfg, tokens=t)),
+            jax.jit(lambda p, c, t, i: jlm.decode_step(p, jcfg, c, t, i)))
 
 
 def _splice_np(big, small):
@@ -72,7 +83,8 @@ def test_prefill_and_decode_match_reference(arch, mode):
     jparams, tparams = _params(jcfg, tcfg)
     B, S0, S = 2, 8, 13
     tokens = np.random.default_rng(1).integers(3, jcfg.vocab_size, (B, S)).astype(np.int32)
-    jlog, jcache = jlm.prefill(jparams, jcfg, tokens=jnp.asarray(tokens[:, :S0]))
+    jprefill, jdecode = _jax_steps(jcfg)
+    jlog, jcache = jprefill(jparams, jnp.asarray(tokens[:, :S0]))
     tlog, tcache = make_prefill_step(tcfg)(tparams, {"tokens": torch.from_numpy(tokens[:, :S0])})
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4, rtol=1e-4)
     jcache = _splice_np(jlm.init_cache(jcfg, B, S), jcache)
@@ -82,7 +94,7 @@ def test_prefill_and_decode_match_reference(arch, mode):
         # scalar positions first, then per-slot (B,) positions
         jpos = jnp.int32(i) if i % 2 else jnp.full((B,), i, jnp.int32)
         tpos = i if i % 2 else torch.full((B,), i, dtype=torch.int32)
-        jlog, jcache = jlm.decode_step(jparams, jcfg, jcache, jnp.asarray(tokens[:, i]), jpos)
+        jlog, jcache = jdecode(jparams, jcache, jnp.asarray(tokens[:, i]), jpos)
         tlog, big = step(tparams, big, torch.from_numpy(tokens[:, i]), tpos)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4, rtol=1e-4,
                                    err_msg=f"{arch} {mode} pos {i}")
@@ -175,13 +187,13 @@ def test_generate_matches_reference_steps(arch):
     jparams, tparams = _params(jcfg, tcfg)
     B, S_p, max_new, eos = 3, 8, 7, 2
     prompts = np.random.default_rng(5).integers(3, jcfg.vocab_size, (B, S_p)).astype(np.int32)
-    logits, cache = jlm.prefill(jparams, jcfg, tokens=jnp.asarray(prompts))
+    jprefill, jdecode = _jax_steps(jcfg)
+    logits, cache = jprefill(jparams, jnp.asarray(prompts))
     cache = _splice_np(jlm.init_cache(jcfg, B, S_p + max_new), cache)
     tok = np.asarray(jnp.argmax(logits, -1), np.int32)
     want, done = [tok], tok == eos
     for i in range(1, max_new):
-        logits, cache = jlm.decode_step(jparams, jcfg, cache, jnp.asarray(tok),
-                                        jnp.int32(S_p + i - 1))
+        logits, cache = jdecode(jparams, cache, jnp.asarray(tok), jnp.int32(S_p + i - 1))
         tok = np.where(done, eos, np.asarray(jnp.argmax(logits, -1), np.int32))
         want.append(tok)
         done = done | (tok == eos)
