@@ -4,7 +4,7 @@
 
 Phases, one line or more each:
 
-1. build   — compile the five CUDA sources (``src/repro_torch/csrc/``), one
+1. build   — compile the six CUDA sources (``src/repro_torch/csrc/``), one
              nvcc each for sm_90a, all in parallel; print the build times,
              the ptxas reports and the card's name and power limit.
 2. kernel  — the CUDA kernel against its plain PyTorch version on the card,
@@ -80,6 +80,25 @@ Phases, one line or more each:
              that must exceed its limit; float32 (4 of 28 layers) at the
              reference's tolerances; and the 4-slot engine against isolated
              generation (held in float32, printed in bf16).
+10. quant   — the int8 quantization kernel (``src/repro_torch/csrc/quant.cu``)
+             against its plain PyTorch version on the card, bitwise in the
+             codes and the scales, at the compression path's rows for
+             smollm-135m's 11 gradient leaves, at llama3-8b leaves (the
+             (4096, 128256) head, the (131072, 14336) bf16 stacked w_gate,
+             (131072, 4096)) and on one row of 2**20, with rows of NaN,
+             +-inf, zeros, -0.0 and half-way ties; kernel and plain device
+             times beside the byte bound (no PyTorch call computes it).
+11. compress — int8 error-feedback compression, this slice's main path: the
+             gradient tree of one ``lm_loss`` backward of smollm-135m at its
+             published widths (B=8, S=2048, ``use_kernels="cuda"``), then
+             ``init_ef_state`` and 20 rounds of ``ef_compress_grads`` with
+             the quant launch count set to 0 just before and read just after
+             (11 per round); every round bitwise against
+             ``use_kernels="off"``; the error-feedback bound of the
+             reference's test (relative error of the summed compressed
+             grads under 0.01); ms per round, the kernel's share and the
+             idle share of a profiled window; and ``all_reduce_int8`` over
+             a one-rank NCCL group against the round trip, bitwise.
 
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels; the last line is
@@ -1373,15 +1392,298 @@ def phase_moe_serve() -> dict:
                 consistency=consistency, kernels_vs_off=kvo, engine=eng, engine_float32=eng32)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the int8 quantization kernel against its plain version
+# ---------------------------------------------------------------------------
+
+QUANT_SHAPES = {
+    # name: (R, d, dtype).  smollm-135m's 11 gradient leaves as the
+    # compression path's _roundtrip makes them rows (float32: g + error)
+    "embed": (49152, 576, torch.float32),
+    "w_down": (46080, 576, torch.float32),  # (30, 1536, 576)
+    "w_gate_up": (17280, 1536, torch.float32),  # (30, 576, 1536), twice
+    "wq_wo": (17280, 576, torch.float32),
+    "wk_wv": (17280, 192, torch.float32),
+    "norms": (30, 576, torch.float32),
+    "final_norm": (1, 576, torch.float32),
+    # llama3-8b leaves: the untied head, the stacked w_gate (1.88e9
+    # elements), the stacked wq / wo
+    "llama_head": (4096, 128256, torch.float32),
+    "llama_w_gate_bf16": (131072, 14336, torch.bfloat16),
+    "llama_wq": (131072, 4096, torch.float32),
+    "row_2e20": (1, 2 ** 20, torch.float32),  # one wide row, as a 1-D leaf arrives
+}
+QUANT_TIES = (127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5)  # scale 1: half-way ties
+BIG = 2 ** 28  # elements: time the plain version with events (its float32
+# temporaries of several GB are not worth capturing in a graph) and take
+# fewer kernel replays
+
+
+def quant_inputs(R: int, d: int, dtype, seed: int) -> torch.Tensor:
+    """Seeded normal rows on the card; with six rows or more, the first six
+    hold a NaN, +inf, -inf, all zeros, all -0.0 and half-way ties."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(R, d, generator=g, device="cuda") * 3).to(dtype)
+    if R >= 6:
+        x[0, d // 2] = float("nan")
+        x[1, 3 % d] = float("inf")
+        x[2, 7 % d] = float("-inf")
+        x[3] = 0.0
+        x[4] = -0.0
+        ties = torch.tensor(QUANT_TIES, device="cuda", dtype=dtype)
+        x[5] = ties.repeat(-(-d // len(QUANT_TIES)))[:d]
+    return x
+
+
+def quant_work(R: int, d: int, dtype) -> dict:
+    """Bytes: x read once, q and the scales written once; operations: abs,
+    max, the division, round and a two-sided clamp per element."""
+    esz = torch.finfo(dtype).bits // 8
+    return bound(6 * R * d, R * d * esz + R * d + 4 * R)
+
+
+def phase_quant() -> dict:
+    from repro_torch.kernels.quant import kernel as quant
+    from repro_torch.kernels.quant.ref import quantize_int8_ref
+
+    print("phase 10: int8 quantization kernel against its plain version on the card",
+          flush=True)
+    rows = {}
+    for seed, (shape, (R, d, dtype)) in enumerate(QUANT_SHAPES.items()):
+        x = quant_inputs(R, d, dtype, 500 + seed)
+        q_k, s_k = quant.quantize_int8_cuda(x)
+        q_p, s_p = quantize_int8_ref(x)
+        torch.cuda.synchronize()
+        same_q = bool(torch.equal(q_k, q_p))
+        same_s, _ = compare(s_k, s_p)
+        check(same_q and same_s, f"quant {shape}: kernel != plain version bitwise "
+                                 f"(q {same_q}, scale {same_s})")
+        if R >= 6:
+            special = bool((q_k[:5] == 0).all()) and bool(torch.isnan(s_k[0]).all()) and bool(
+                torch.isinf(s_k[1:3]).all())
+            check(special, f"quant {shape}: NaN / inf / zero rows not all-zero codes with a "
+                           f"NaN / inf scale")
+            check(q_k[5, :8].tolist() == [127, 0, 2, 2, 0, -2, 126, -4],
+                  f"quant {shape}: half-way ties not rounded to even ({q_k[5, :8].tolist()})")
+        big = R * d >= BIG
+
+        def kern():
+            return quant.quantize_int8_cuda(x)
+
+        def plain():
+            return quantize_int8_ref(x)
+
+        ms = device_ms(kern, reps_for(kern, most=10 if big else 200))
+        plain_ms = call_ms(plain, 3) if big else device_ms(plain, reps_for(plain, most=50))
+        fin = torch.isfinite(s_p)
+        row = dict(
+            shape=shape, kernel="quantize_int8", R=R, d=d, dtype=str(dtype),
+            bitwise=same_q and same_s,
+            max_abs_err=max(max_err(s_k[fin], s_p[fin]), max_err(q_k, q_p)), ms=ms,
+            plain_ms=plain_ms, plain_timing="events" if big else "graph",
+            library_ms=None, **quant_work(R, d, dtype),
+        )
+        rows[shape] = row
+        print("  " + json.dumps(row), flush=True)
+        del x, q_k, s_k, q_p, s_p
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: int8 error-feedback compression, this slice's main path
+# ---------------------------------------------------------------------------
+
+COMPRESS = dict(arch="smollm-135m", batch=8, seq_len=2048, rounds=20)
+EF_REL_TOL = 0.01  # tests/test_checkpoint_fault.py::test_ef_compression_error_feedback
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits (so NaN == NaN and -0.0 != +0.0)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and bool(torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def profile_rounds(run, n: int, warmup: bool) -> dict:
+    """Device busy time, the quant kernel's share and the idle share over
+    ``n`` calls of ``run``, from torch.profiler's CUDA activity (each kernel
+    counted once).  With ``warmup``, one more call runs first under the
+    profiler's schedule, traced and discarded.  ``kernel_records`` counts the
+    kernels the profiler recorded, ``launch_calls`` the launches it saw."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=n, repeat=1) if warmup else None
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        if warmup:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+        t0 = time.perf_counter()
+        for i in range(n):
+            run()
+            if i == n - 1:
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            if warmup:
+                prof.step()
+    busy_us = quant_us = 0.0
+    quant_calls = kernel_records = launch_calls = 0
+    by_kernel = []
+    for ev in prof.key_averages():
+        if ev.key.startswith("ProfilerStep"):  # the schedule's step spans, not kernels
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
+        busy_us += us
+        by_kernel.append((us, ev.count, ev.key))
+        kernel_records += ev.count if us > 0 else 0
+        launch_calls += ev.count if ev.key == "cudaLaunchKernel" else 0
+        if "quant_kernel" in ev.key:
+            quant_us += us
+            quant_calls += ev.count
+    top = [dict(us_per_round=us / n, calls_per_round=c / n, kernel=key[:90])
+           for us, c, key in sorted(by_kernel, reverse=True)[:8]]
+    return dict(rounds=n, warmup=warmup, ms_per_round=secs / n * 1e3,
+                device_busy_ms_per_round=busy_us / n / 1e3,
+                quant_kernel_ms_per_round=quant_us / n / 1e3, quant_calls=quant_calls,
+                kernel_records=kernel_records, launch_calls=launch_calls,
+                quant_share_of_round=quant_us / 1e6 / secs,
+                idle_share=1.0 - busy_us / 1e6 / secs, top_kernels=top)
+
+
+def phase_compress() -> dict:
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed.compression import (
+        all_reduce_int8,
+        ef_compress_grads,
+        init_ef_state,
+    )
+    from repro_torch.kernels.quant import dequantize_int8, quantize_int8
+    from repro_torch.kernels.quant import kernel as quant
+    from repro_torch.model import lm
+    from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+    print("phase 11: int8 error-feedback compression, the main path", flush=True)
+    cfg = get_cfg(COMPRESS["arch"])  # use_kernels="cuda"
+    params = lm.init_model(cfg, 0, device="cuda")
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=COMPRESS["seq_len"],
+        global_batch=COMPRESS["batch"], seed=0,
+    )).next_batch()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    leaves, treedef = tree_flatten(params)
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    loss, _ = lm.lm_loss(params, cfg, batch)
+    grads = tree_unflatten(treedef, [g.detach() for g in torch.autograd.grad(loss, leaves)])
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_launches = {k: v for k, v in lm_counts().items() if k not in ("ssd_scan", "moe_gmm")}
+    g_leaves = tree_leaves(grads)
+    n_leaves = len(g_leaves)
+    print(f"  gradient tree: loss {float(loss.detach()):.4f}, {n_leaves} leaves, "
+          f"{sum(g.numel() for g in g_leaves)} elements, dtypes "
+          f"{sorted({str(g.dtype) for g in g_leaves})}, {grad_s:.3f}s, launches "
+          f"{grad_launches}", flush=True)
+    del params, leaves, loss
+    check(all(bool(torch.isfinite(g).all()) for g in g_leaves), "compress: non-finite grads")
+    for name, n in grad_launches.items():
+        check(n > 0, f"compress: {name} was never launched for the grads")
+
+    ef_k, ef_o = init_ef_state(grads), init_ef_state(grads)
+    total = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device="cuda"), grads)
+    rounds = COMPRESS["rounds"]
+    round_s, mismatched = [], []
+    quant.LAUNCHES = 0  # the count covers the main path's rounds only
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cg_k, ef_k = ef_compress_grads(grads, ef_k, use_kernels="cuda")
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        cg_o, ef_o = ef_compress_grads(grads, ef_o, use_kernels="off")
+        for what, a, b in (("grads", cg_k, cg_o), ("error", ef_k, ef_o)):
+            for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+                if not bits_equal(x, y):
+                    mismatched.append((r, what, i))
+        for t, c in zip(tree_leaves(total), tree_leaves(cg_k)):
+            t += c.float()
+    torch.cuda.synchronize()
+    launches = quant.LAUNCHES
+    num = sum(float(((t - rounds * g.float()).double() ** 2).sum())
+              for t, g in zip(tree_leaves(total), g_leaves))
+    den = sum(float(((rounds * g.float()).double() ** 2).sum()) for g in g_leaves)
+    rel = math.sqrt(num / den)
+    steady = sorted(round_s[1:])
+    round_ms = steady[len(steady) // 2] * 1e3
+    check(launches == n_leaves * rounds,
+          f"compress: {launches} quantize_int8 launches in {rounds} rounds, expected "
+          f"{n_leaves * rounds}")
+    check(not mismatched, f"compress: kernel path != use_kernels='off' bitwise at (round, "
+                          f"what, leaf) {mismatched[:8]}")
+    check(rel < EF_REL_TOL, f"compress: error feedback's relative error {rel:.3g} >= "
+                            f"{EF_REL_TOL}")
+
+    # profiled windows of 3 rounds: the kernel's share of a round, the idle
+    # share; once as phases 5, 7 and 9 profile, once after a traced warm-up
+    # round that the profiler's schedule discards, to show what the first
+    # way loses (kernel records against the launches the profiler saw)
+    def one_round():
+        ef_compress_grads(grads, ef_k, use_kernels="cuda")
+
+    plain_window = profile_rounds(one_round, 3, warmup=False)
+    prof_row = profile_rounds(one_round, 3, warmup=True)
+    prof_row["without_warmup"] = {k: v for k, v in plain_window.items() if k != "top_kernels"}
+
+    # all_reduce_int8 over a one-rank NCCL group: the round trip, one launch
+    x = grads["embed"]["tok"]
+    allreduce = dict(ok=False, launches=None)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        try:
+            torch.cuda.set_device(0)
+            dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+        except Exception as e:  # noqa: BLE001 — reported, fails the run
+            check(False, f"compress: NCCL could not start a one-rank group: {e!r}")
+        else:
+            try:
+                before = quant.LAUNCHES
+                got = all_reduce_int8(x)
+                torch.cuda.synchronize()
+                allreduce["launches"] = quant.LAUNCHES - before
+                want = dequantize_int8(*quantize_int8(x)).to(x.dtype)
+                allreduce["ok"] = bits_equal(got, want)
+            finally:
+                dist.destroy_process_group()
+    check(allreduce["ok"], "compress: all_reduce_int8 over one NCCL rank != the round trip")
+    check(allreduce["launches"] == 1,
+          f"compress: all_reduce_int8 made {allreduce['launches']} launches, expected 1")
+
+    row = dict(
+        arch=COMPRESS["arch"], batch=COMPRESS["batch"], seq_len=COMPRESS["seq_len"],
+        leaves=n_leaves, elements=sum(g.numel() for g in g_leaves), grad_seconds=grad_s,
+        rounds=rounds, launches=launches, launches_per_round=launches / rounds,
+        round_ms_median=round_ms, round_ms=[s * 1e3 for s in round_s],
+        ef_relative_error=rel, kernel_equals_off=not mismatched, profiled=prof_row,
+        all_reduce=allreduce,
+    )
+    print("  " + json.dumps(row), flush=True)
+    return row
+
+
 def build_all():
     """Build every kernel library at once: one nvcc per source, in parallel."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.quant import kernel as quant
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.stream_fused import kernel as stream
 
-    mods = (stream, flash, rms, ssd, gmm)
+    mods = (stream, flash, rms, ssd, gmm, quant)
     errors = []
 
     def run(mod):
@@ -1426,6 +1728,9 @@ def main() -> int:
     serve = phase_serve()
     gmm_rows = phase_gmm()
     moe = phase_moe_serve()
+    torch.cuda.empty_cache()  # phase 10's largest input and plain version take ~25 GB
+    quant_rows = phase_quant()
+    compress = phase_compress()
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
@@ -1474,6 +1779,14 @@ def main() -> int:
         name="moe_gmm", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",
         replaces="src/repro/kernels/moe_gmm/kernel.py:37", launches=moe["launches"]["moe_gmm"],
         max_abs_err=max(r["max_abs_err"] for r in gmm_rows.values()),
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+    ))
+    row = quant_rows["embed"]
+    record["kernels"].append(dict(
+        name="quantize_int8", route="cuda", source="src/repro_torch/csrc/quant.cu",
+        replaces="src/repro/kernels/quant/kernel.py:24", launches=compress["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in quant_rows.values()),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
     ))
