@@ -24,16 +24,22 @@ Phases, one line or more each:
 4. flash    — the three flash-attention kernels (``src/repro_torch/csrc/
              flash_attention.cu``: forward, dQ, dK/dV) against their plain
              PyTorch versions on the card at the training path's shape
-             (B=8, S=2048, H=9, KV=3, hd=64, bf16, causal), a float32 shape
-             and an hd=128 shape; kernel and plain device times (CUDA-graph
-             replay) beside the bound and beside
-             ``scaled_dot_product_attention`` (forward, and forward+backward).
+             (B=8, S=2048, H=9, KV=3, hd=64, bf16, causal), an hd=128 shape,
+             hd=16 and hd=32 shapes at S=192 (S % 128 == 64), a non-causal
+             bf16 shape and a float32 shape; kernel and plain device times
+             (CUDA-graph replay) beside the bound and beside
+             ``scaled_dot_product_attention``: its forward for the forward,
+             its backward alone (one ``autograd.grad`` on a retained graph,
+             dQ, dK and dV together, queued behind a spin kernel so the
+             events time the device) for dQ and dK/dV, and forward+backward.
 5. train   — the LM slice's main path: ``repro_torch.launch.train.
              run_training("smollm-135m", reduced=False, steps=10,
              global_batch=8, seq_len=2048, device="cuda")`` with the flash
              launch counts set to 0 just before and read just after; loss
-             finite and falling; then a profiled window of three steps for the
-             device's idle share, and one step with ``use_kernels="off"``
+             finite and falling; then a profiled window of three steps after
+             a discarded warm-up step (``profile_window``: the device's idle
+             share, the flash kernels' ms per step, the device records beside
+             what the host enqueued), and one step with ``use_kernels="off"``
              from the same parameters and batch, whose loss must match.  The
              RMSNorm kernel runs on this path too (every block norm and the
              final norm, again in each block's recompute).
@@ -52,7 +58,8 @@ Phases, one line or more each:
              device="cuda")`` with the kernels' launch counts set to 0 just
              before and read just after (24 ``ssd_scan`` per prefill, 49
              ``rmsnorm`` per forward and per decode step); prefill and decode
-             tokens/s and the device idle share of a profiled decode window;
+             tokens/s and the device idle share of a profiled decode window
+             (16 steps after a discarded warm-up step);
              prefill + decode against the full forward (B=2, S0=512, S=768);
              the kernel path against ``use_kernels="off"`` on one prompt of
              the path's length (B=1, S=2048), every bf16 check beside a
@@ -73,8 +80,15 @@ Phases, one line or more each:
              counts set to 0 just before and read just after (84 ``moe_gmm``
              and 57 ``rmsnorm`` per forward and per decode step); prefill and
              decode tokens/s, peak memory, the init seconds and the idle
-             share of a profiled decode window; prefill + decode against the
-             forward (B=2, S0=512, S=768) on a capacity nothing overflows;
+             share of a profiled decode window (as phase 7's; the attention
+             products read the bf16 K/V cache as it lies, with float32
+             results, so no copy or elementwise kernel in it may last as
+             long as reading one layer's K cache); those two products alone
+             against their plain version at the window's cache and over a
+             sweep of head counts and cache lengths, timed beside one strided
+             bmm per kv head and beside reading K and V once; prefill +
+             decode against the forward (B=2, S0=512, S=768) on a capacity
+             nothing overflows;
              the kernel path against ``use_kernels="off"`` on one 2048-token
              prompt; each bf16 check on the median position, beside a control
              that must exceed its limit; float32 (4 of 28 layers) at the
@@ -237,6 +251,17 @@ def call_ms(fn, reps: int) -> float:
             fn()
 
     return _events(run, reps)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """ms per call on the device for a call not captured in a CUDA graph: a
+    spin kernel holds the stream (about 1 ms of the card's clock per call)
+    while the host queues ``reps`` calls, so the events time the device's
+    work and not the host's."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e6 * reps))
+    return _events(lambda: [fn() for _ in range(reps)], reps)
 
 
 def device_ms(fn, reps: int) -> float:
@@ -421,10 +446,15 @@ def phase_e2e(nets) -> dict:
 # ---------------------------------------------------------------------------
 
 FLASH_SHAPES = {
-    # name: (B, S, H, KV, hd, dtype)
-    "path": (8, 2048, 9, 3, 64, torch.bfloat16),
-    "f32": (2, 512, 4, 2, 64, torch.float32),
-    "hd128": (2, 1024, 32, 8, 128, torch.bfloat16),
+    # name: (B, S, H, KV, hd, dtype, causal)
+    "path": (8, 2048, 9, 3, 64, torch.bfloat16, True),
+    "f32": (2, 512, 4, 2, 64, torch.float32, True),
+    "hd128": (2, 1024, 32, 8, 128, torch.bfloat16, True),
+    # S % 128 == 64: the bf16 forward's 128-row blocks and dK/dV's 128-key
+    # blocks end half past the sequence
+    "hd16": (2, 192, 4, 2, 16, torch.bfloat16, True),
+    "hd32": (2, 192, 4, 2, 32, torch.bfloat16, True),
+    "full": (2, 1024, 8, 2, 64, torch.bfloat16, False),
 }
 FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (3e-5, 2e-4)}  # (fwd, bwd)
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -440,11 +470,11 @@ def reps_for(fn, budget_s: float = 0.2, most: int = 50) -> int:
     return max(3, min(most, int(budget_s / max(time.perf_counter() - t0, 1e-6))))
 
 
-def flash_bounds(B, S, H, KV, hd, dtype) -> dict:
+def flash_bounds(B, S, H, KV, hd, dtype, causal: bool = True) -> dict:
     """Least time (ms) for each kernel's work: matrix FLOPs over the peak for
     the type, or bytes (each input read once, each output written once) over
     HBM bandwidth, whichever is larger."""
-    pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S  # (query, key) pairs
     esz = torch.finfo(dtype).bits // 8
     q_b, kv_b, row_b = B * H * S * hd * esz, B * KV * S * hd * esz, B * H * S * 4
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
@@ -482,7 +512,7 @@ def phase_flash() -> dict:
 
     print("phase 4: flash kernels against their plain versions on the card", flush=True)
     rows = {}
-    for shape, (B, S, H, KV, hd, dtype) in FLASH_SHAPES.items():
+    for shape, (B, S, H, KV, hd, dtype, causal) in FLASH_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(len(rows))
 
         def randn(*size):
@@ -492,13 +522,13 @@ def phase_flash() -> dict:
         k, v = randn(B * KV, S, hd), randn(B * KV, S, hd)
         tol_f, tol_b = FLASH_TOL[dtype]
 
-        o_k, lse_k = kernel.flash_fwd_cuda(q, k, v, causal=True)
-        o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=True)
+        o_k, lse_k = kernel.flash_fwd_cuda(q, k, v, causal=causal)
+        o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=causal)
         delta = ref.delta_of(o_p, do)
-        dq_k = kernel.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, causal=True)
-        dq_p = ref.flash_bwd_dq_ref(q, k, v, do, lse_p, delta, causal=True)
-        dk_k, dv_k = kernel.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, causal=True)
-        dk_p, dv_p = ref.flash_bwd_dkv_ref(q, k, v, do, lse_p, delta, causal=True)
+        dq_k = kernel.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, causal=causal)
+        dq_p = ref.flash_bwd_dq_ref(q, k, v, do, lse_p, delta, causal=causal)
+        dk_k, dv_k = kernel.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, causal=causal)
+        dk_p, dv_p = ref.flash_bwd_dkv_ref(q, k, v, do, lse_p, delta, causal=causal)
         torch.cuda.synchronize()
         errs = {
             "flash_fwd": max(max_err(o_k, o_p), max_err(lse_k, lse_p)),
@@ -515,16 +545,16 @@ def phase_flash() -> dict:
             check(bool(torch.isfinite(t).all()), f"flash {shape}: non-finite kernel output")
 
         calls = {
-            "flash_fwd": (lambda: kernel.flash_fwd_cuda(q, k, v, causal=True),
-                          lambda: ref.flash_fwd_ref(q, k, v, causal=True)),
+            "flash_fwd": (lambda: kernel.flash_fwd_cuda(q, k, v, causal=causal),
+                          lambda: ref.flash_fwd_ref(q, k, v, causal=causal)),
             "flash_bwd_dq": (
-                lambda: kernel.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, causal=True),
-                lambda: ref.flash_bwd_dq_ref(q, k, v, do, lse_p, delta, causal=True)),
+                lambda: kernel.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, causal=causal),
+                lambda: ref.flash_bwd_dq_ref(q, k, v, do, lse_p, delta, causal=causal)),
             "flash_bwd_dkv": (
-                lambda: kernel.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, causal=True),
-                lambda: ref.flash_bwd_dkv_ref(q, k, v, do, lse_p, delta, causal=True)),
+                lambda: kernel.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, causal=causal),
+                lambda: ref.flash_bwd_dkv_ref(q, k, v, do, lse_p, delta, causal=causal)),
         }
-        bounds = flash_bounds(B, S, H, KV, hd, dtype)
+        bounds = flash_bounds(B, S, H, KV, hd, dtype, causal)
         times = {}
         for name, (kern, plain) in calls.items():
             times[name] = (device_ms(kern, reps_for(kern)), device_ms(plain, reps_for(plain)))
@@ -533,14 +563,14 @@ def phase_flash() -> dict:
         q4, k4, v4 = q.view(B, H, S, hd), k.view(B, KV, S, hd), v.view(B, KV, S, hd)
 
         def sdpa():
-            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=True)
 
         sdpa_ms = device_ms(sdpa, reps_for(sdpa))
         qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
         do4 = do.view(B, H, S, hd)
 
         def sdpa_fb():
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
             torch.autograd.grad(out, (qg, kg, vg), do4)
 
         qs = q.view(B, H, S, hd).transpose(1, 2).detach().requires_grad_(True)
@@ -549,22 +579,36 @@ def phase_flash() -> dict:
         dos = do4.transpose(1, 2)
 
         def ours_fb():
-            out = flash_attention(qs, ks, vs, causal=True)
+            out = flash_attention(qs, ks, vs, causal=causal)
             torch.autograd.grad(out, (qs, ks, vs), dos)
 
+        # SDPA's backward alone: one autograd.grad on a retained graph, its
+        # device time (queued behind a spin kernel; host time hid it at
+        # small shapes and on slow hosts)
+        out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
+
+        def sdpa_bwd():
+            torch.autograd.grad(out_g, (qg, kg, vg), do4, retain_graph=True)
+
+        sdpa_bwd_ms = queued_ms(sdpa_bwd, reps_for(sdpa_bwd))
+        del out_g
         sdpa_fb_ms = call_ms(sdpa_fb, reps_for(sdpa_fb))
         ours_fb_ms = call_ms(ours_fb, reps_for(ours_fb))
+        library = {"flash_fwd": ("SDPA fwd", sdpa_ms),
+                   "flash_bwd_dq": ("SDPA bwd (dQ+dK+dV)", sdpa_bwd_ms),
+                   "flash_bwd_dkv": ("SDPA bwd (dQ+dK+dV)", sdpa_bwd_ms)}
         for name in FLASH_NAMES:
             row = dict(
                 shape=shape, kernel=name, B=B, S=S, H=H, KV=KV, hd=hd, dtype=str(dtype),
-                max_abs_err=errs[name], ms=times[name][0], plain_ms=times[name][1],
-                **bounds[name],
-                library_ms=sdpa_ms if name == "flash_fwd" else None,
+                causal=causal, max_abs_err=errs[name], ms=times[name][0],
+                plain_ms=times[name][1], **bounds[name],
+                library=library[name][0], library_ms=library[name][1],
             )
             rows[(shape, name)] = row
             print("  " + json.dumps(row), flush=True)
         print("  " + json.dumps(dict(
-            shape=shape, sdpa_fwd_ms=sdpa_ms, sdpa_fwd_bwd_call_ms=sdpa_fb_ms,
+            shape=shape, sdpa_fwd_ms=sdpa_ms, sdpa_bwd_call_ms=sdpa_bwd_ms,
+            sdpa_fwd_bwd_call_ms=sdpa_fb_ms,
             port_fwd_bwd_call_ms=ours_fb_ms,
         )), flush=True)
     return rows
@@ -599,35 +643,96 @@ def zero_lm_counts() -> None:
     rms.LAUNCHES = ssd.LAUNCHES = gmm.LAUNCHES = 0
 
 
-def profiled_idle_share(train_step, params, opt_state, batch, n: int = 3) -> dict:
-    """Device busy and idle share over ``n`` steps, from torch.profiler's CUDA
-    activity alone, so each kernel's time is counted once (one warm-up step
-    first)."""
-    train_step(params, opt_state, batch)
-    torch.cuda.synchronize()
+# what the host calls to put work on the device, as the profiler names it
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+# device work that copies or casts: what a float32 copy of a cache would run as
+COPY_KERNELS = ("copy", "elementwise", "Memcpy")
+
+
+PROFILE_ATTEMPTS = 3
+
+
+def profile_window(run, n: int, *, warmup: bool = True, match=()) -> dict:
+    """Device busy time and idle share over ``n`` calls of ``run``, from
+    torch.profiler's CUDA activity (each kernel counted once).  With
+    ``warmup``, one more call runs first under the profiler's schedule, traced
+    and discarded, and the active window has 50 ms of idle margin at each
+    end: a window without them loses kernel records.  ``records`` counts the
+    device activities recorded (kernels, copies, fills), ``enqueued`` the
+    host calls that put work on the device; a warm-up window that still
+    recorded fewer (seen on a slow host) is taken again, up to
+    ``PROFILE_ATTEMPTS`` times, and ``attempt`` says which one is returned.
+    ``matched`` sums, per name in ``match``, the device time of kernels whose
+    name holds it; ``longest_copy_us`` is the longest mean launch of a copy
+    or elementwise kernel (``COPY_KERNELS``)."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        row = _profile_once(run, n, warmup, match)
+        row["attempt"] = attempt
+        if not warmup or row["records"] >= row["enqueued"]:
+            break
+    return row
+
+
+def check_window(prof: dict, what: str) -> None:
+    """Print a warm-up window's device records beside what the host enqueued,
+    and fail the run if the window lost any."""
+    print(f"  {what}: {prof['records']} device records for {prof['enqueued']} "
+          f"enqueued by the host (attempt {prof['attempt']})", flush=True)
+    check(prof["records"] >= prof["enqueued"],
+          f"{what}: the profiled window lost kernel records after {prof['attempt']} attempts")
+
+
+def _profile_once(run, n: int, warmup: bool, match) -> dict:
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=n, repeat=1) if warmup else None
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        if warmup:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.05)
         t0 = time.perf_counter()
-        for _ in range(n):
-            train_step(params, opt_state, batch)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    busy_us, flash_us, by_kernel = 0.0, {}, []
+        for i in range(n):
+            run()
+            if i == n - 1:
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                if warmup:
+                    time.sleep(0.05)
+            if warmup:
+                prof.step()
+    busy_us = longest_copy_us = 0.0
+    records = enqueued = 0
+    matched = {name: [0.0, 0] for name in match}
+    by_kernel = []
     for ev in prof.key_averages():
+        if ev.key.startswith("ProfilerStep"):  # the schedule's step spans, not kernels
+            continue
         us = getattr(ev, "self_device_time_total", None)
         us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
         busy_us += us
         by_kernel.append((us, ev.count, ev.key))
-        for name in FLASH_NAMES:
-            if f"{name}_" in ev.key:  # flash_fwd_mma_kernel<64>, ...
-                flash_us[name] = flash_us.get(name, 0.0) + us
-    top = [dict(ms_per_step=us / 1e3 / n, calls_per_step=c / n, kernel=key[:90])
-           for us, c, key in sorted(by_kernel, reverse=True)[:12]]
-    return dict(
-        steps=n, seconds=secs, device_busy_ms=busy_us / 1e3,
-        idle_share=1.0 - busy_us / 1e6 / secs,
-        flash_ms={k: v / 1e3 for k, v in flash_us.items()}, top_kernels=top,
-    )
+        records += ev.count if us > 0 else 0
+        enqueued += ev.count if ev.key in ENQUEUE_CALLS else 0
+        if us > 0 and any(w in ev.key for w in COPY_KERNELS):
+            longest_copy_us = max(longest_copy_us, us / ev.count)
+        for name in match:
+            if name in ev.key:
+                matched[name][0] += us
+                matched[name][1] += ev.count
+    top = [dict(us_per_call=us / n, per_call=c / n, kernel=key[:90])
+           for us, c, key in sorted(by_kernel, reverse=True)[:10]]
+    return dict(calls=n, warmup=warmup, ms_per_call=secs / n * 1e3,
+                device_busy_ms_per_call=busy_us / n / 1e3,
+                idle_share=1.0 - busy_us / 1e6 / secs, records=records, enqueued=enqueued,
+                longest_copy_us=longest_copy_us,
+                matched={k: dict(ms_per_call=us / n / 1e3, launches_per_call=c / n)
+                         for k, (us, c) in matched.items()},
+                top_kernels=top)
 
 
 def phase_train() -> dict:
@@ -678,8 +783,11 @@ def phase_train() -> dict:
         global_batch=TRAIN["global_batch"], seed=0,
     )).next_batch()
     step_k = make_train_step(cfg, opt)
-    prof = profiled_idle_share(step_k, params, opt_state, batch)
+    # flash_fwd_wgmma_kernel<64>, flash_bwd_dq_mma_kernel<64>, ...
+    prof = profile_window(lambda: step_k(params, opt_state, batch), 3,
+                          match=tuple(f"{name}_" for name in FLASH_NAMES))
     print("  " + json.dumps({"profiled": prof}), flush=True)
+    check_window(prof, "train: profiled window")
     row["profiled"] = prof
 
     _, _, m_k = step_k(params, opt_state, batch)
@@ -888,36 +996,86 @@ def isolated(cfg, params, prompt, max_new, max_len, eos_id=2):
 
 def profiled_decode(cfg, params, n: int = 16) -> dict:
     """Device busy and idle share over ``n`` decode steps at the main path's
-    batch, after a prefill of its prompt length (CUDA activity only)."""
+    batch, after a prefill of its prompt length (``profile_window``)."""
     from repro_torch.launch.serve import prefill_cache
     from repro_torch.model import lm
 
     g = torch.Generator().manual_seed(7)
     prompts = torch.randint(3, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
                             generator=g, dtype=torch.int32).cuda()
-    logits, cache = prefill_cache(params, cfg, prompts, SERVE["prompt_len"] + n + 1)
+    cache_len = SERVE["prompt_len"] + PROFILE_ATTEMPTS * (n + 1) + 1  # room for every attempt
+    logits, cache = prefill_cache(params, cfg, prompts, cache_len)
+    state = dict(logits=logits, cache=cache, pos=SERVE["prompt_len"])
+
+    def step():
+        tok = torch.argmax(state["logits"], -1).to(torch.int32)
+        state["logits"], state["cache"] = lm.decode_step(params, cfg, state["cache"], tok,
+                                                         state["pos"])
+        state["pos"] += 1
+
     with torch.inference_mode():
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for i in range(n):
-                tok = torch.argmax(logits, -1).to(torch.int32)
-                logits, cache = lm.decode_step(params, cfg, cache, tok,
-                                               SERVE["prompt_len"] + i)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-    busy_us, by_kernel = 0.0, []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
-        busy_us += us
-        by_kernel.append((us, ev.count, ev.key))
-    top = [dict(us_per_step=us / n, calls_per_step=c / n, kernel=key[:90])
-           for us, c, key in sorted(by_kernel, reverse=True)[:10]]
-    return dict(steps=n, seconds=secs, ms_per_step=secs / n * 1e3,
-                device_busy_ms_per_step=busy_us / 1e3 / n,
-                idle_share=1.0 - busy_us / 1e6 / secs, top_kernels=top)
+        prof = profile_window(step, n)
+    prof["cache_len"] = cache_len
+    check_window(prof, f"{cfg.name}: profiled decode")
+    return prof
+
+
+# the decode's attention products beyond the served shape: (kv heads, query
+# heads per kv head, cache length), at the served batch and head width
+DECODE_PRODUCT_SWEEP = ((16, 1, 512), (16, 1, 8192), (8, 4, 2048), (32, 1, 2048),
+                        (64, 1, 2048))
+DECODE_PRODUCT_TOL = 1e-5  # max |err| over max |plain|, float32 results
+
+
+def decode_products(B: int, hd: int, shapes) -> list:
+    """The decode's two attention products (``model/attention.py``:
+    ``_cache_scores`` over every (kv head, key slot) pair with the diagonal
+    blocks kept, ``_cache_mix`` with p spread block-diagonally) against their
+    plain version (float32 casts, ``einsum``).  Device times beside the same
+    products as one strided ``bmm`` per kv head (reads the cache as it lies
+    with no waste, but launches kv times) and beside the bound: reading the
+    K and V caches once."""
+    from repro_torch.model import attention as A
+
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for kv, G, S in shapes:
+        ck, cv = (torch.randn(B, S, kv, hd, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        q_g = torch.randn(B, kv, G, hd, generator=g, device="cuda").to(torch.bfloat16)
+        scores = A._cache_scores(q_g, ck, False)
+        p = torch.softmax(scores, -1).to(torch.bfloat16)
+        mix = A._cache_mix(p, cv, False)
+
+        def plain():
+            return (torch.einsum("bkgd,bskd->bkgs", q_g.float(), ck.float()),
+                    torch.einsum("bkgs,bskd->bkgd", p.float(), cv.float()))
+
+        want_s, want_m = plain()
+        err = max(float((scores - want_s).abs().max() / want_s.abs().max()),
+                  float((mix - want_m).abs().max() / want_m.abs().max()))
+        check(err <= DECODE_PRODUCT_TOL, f"decode products kv={kv} G={G} S={S}: relative "
+                                         f"error {err:.3g} > {DECODE_PRODUCT_TOL}")
+        del scores, mix, want_s, want_m
+
+        def ours():
+            A._cache_scores(q_g, ck, False)
+            A._cache_mix(p, cv, False)
+
+        def per_head():
+            for h in range(kv):
+                torch.bmm(q_g[:, h], ck[:, :, h].transpose(1, 2), out_dtype=torch.float32)
+                torch.bmm(p[:, h], cv[:, :, h], out_dtype=torch.float32)
+
+        row = dict(B=B, kv=kv, G=G, S=S, hd=hd, max_rel_err=err,
+                   ms=device_ms(ours, reps_for(ours)),
+                   per_head_ms=device_ms(per_head, reps_for(per_head)),
+                   plain_ms=device_ms(plain, reps_for(plain)),
+                   bound_ms=2 * ck.numel() * 2 / HBM_BYTES_PER_S * 1e3)
+        print("  " + json.dumps({"decode_products": row}), flush=True)
+        rows.append(row)
+        del ck, cv, q_g, p
+    return rows
 
 
 def serve_main(arch: str, tag: str) -> dict:
@@ -1332,6 +1490,25 @@ def phase_moe_serve() -> dict:
 
     prof = profiled_decode(cfg, params)
     print("  " + json.dumps({"profiled_decode": prof}), flush=True)
+    # the attention decode reads the bf16 K/V cache as it lies: no copy or
+    # cast of a layer's cache, which could not take less than reading it once
+    cache_read_us = (SERVE["batch"] * prof["cache_len"] * cfg.num_kv_heads
+                     * cfg.head_dim * 2 / HBM_BYTES_PER_S * 1e6)
+    print(f"  longest copy or elementwise kernel per launch {prof['longest_copy_us']:.2f} us; "
+          f"reading one layer's K cache takes at least {cache_read_us:.2f} us", flush=True)
+    check(prof["longest_copy_us"] < cache_read_us,
+          "moe: a copy or cast kernel in the decode step is as long as a K/V cache copy")
+    # the two products of each layer's decode, at this window's cache, then a
+    # sweep of head counts and cache lengths for where their design loses
+    products = decode_products(SERVE["batch"], cfg.head_dim,
+                               ((cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                                 prof["cache_len"]),) + DECODE_PRODUCT_SWEEP)
+    here = products[0]
+    print(f"  decode products per step ({cfg.num_layers} layers): "
+          f"{here['ms'] * cfg.num_layers:.3f} ms (one bmm per kv head "
+          f"{here['per_head_ms'] * cfg.num_layers:.3f}, float32 casts "
+          f"{here['plain_ms'] * cfg.num_layers:.3f}, reading K and V once "
+          f"{here['bound_ms'] * cfg.num_layers:.3f})", flush=True)
 
     def tokens_of(seed: int, shape=(2, 768)) -> torch.Tensor:
         g = torch.Generator().manual_seed(seed)
@@ -1389,7 +1566,8 @@ def phase_moe_serve() -> dict:
     eng = engine_vs_isolated(cfg, params, held=False)
     del params
     return dict(main, init_seconds=init_s, parameters=n_params, profiled_decode=prof,
-                consistency=consistency, kernels_vs_off=kvo, engine=eng, engine_float32=eng32)
+                decode_products=products, consistency=consistency, kernels_vs_off=kvo,
+                engine=eng, engine_float32=eng32)
 
 
 # ---------------------------------------------------------------------------
@@ -1503,53 +1681,6 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and bool(torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
 
 
-def profile_rounds(run, n: int, warmup: bool) -> dict:
-    """Device busy time, the quant kernel's share and the idle share over
-    ``n`` calls of ``run``, from torch.profiler's CUDA activity (each kernel
-    counted once).  With ``warmup``, one more call runs first under the
-    profiler's schedule, traced and discarded.  ``kernel_records`` counts the
-    kernels the profiler recorded, ``launch_calls`` the launches it saw."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=n, repeat=1) if warmup else None
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-        if warmup:
-            run()
-            torch.cuda.synchronize()
-            prof.step()
-        t0 = time.perf_counter()
-        for i in range(n):
-            run()
-            if i == n - 1:
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-            if warmup:
-                prof.step()
-    busy_us = quant_us = 0.0
-    quant_calls = kernel_records = launch_calls = 0
-    by_kernel = []
-    for ev in prof.key_averages():
-        if ev.key.startswith("ProfilerStep"):  # the schedule's step spans, not kernels
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
-        busy_us += us
-        by_kernel.append((us, ev.count, ev.key))
-        kernel_records += ev.count if us > 0 else 0
-        launch_calls += ev.count if ev.key == "cudaLaunchKernel" else 0
-        if "quant_kernel" in ev.key:
-            quant_us += us
-            quant_calls += ev.count
-    top = [dict(us_per_round=us / n, calls_per_round=c / n, kernel=key[:90])
-           for us, c, key in sorted(by_kernel, reverse=True)[:8]]
-    return dict(rounds=n, warmup=warmup, ms_per_round=secs / n * 1e3,
-                device_busy_ms_per_round=busy_us / n / 1e3,
-                quant_kernel_ms_per_round=quant_us / n / 1e3, quant_calls=quant_calls,
-                kernel_records=kernel_records, launch_calls=launch_calls,
-                quant_share_of_round=quant_us / 1e6 / secs,
-                idle_share=1.0 - busy_us / 1e6 / secs, top_kernels=top)
-
-
 def phase_compress() -> dict:
     import os
 
@@ -1628,14 +1759,15 @@ def phase_compress() -> dict:
                             f"{EF_REL_TOL}")
 
     # profiled windows of 3 rounds: the kernel's share of a round, the idle
-    # share; once as phases 5, 7 and 9 profile, once after a traced warm-up
-    # round that the profiler's schedule discards, to show what the first
-    # way loses (kernel records against the launches the profiler saw)
+    # share; once after a traced warm-up round that the profiler's schedule
+    # discards, as every profiled phase does, and once without it, to show
+    # what that loses (device records against what the host enqueued)
     def one_round():
         ef_compress_grads(grads, ef_k, use_kernels="cuda")
 
-    plain_window = profile_rounds(one_round, 3, warmup=False)
-    prof_row = profile_rounds(one_round, 3, warmup=True)
+    plain_window = profile_window(one_round, 3, warmup=False, match=("quant_kernel",))
+    prof_row = profile_window(one_round, 3, match=("quant_kernel",))
+    check_window(prof_row, "compress: profiled window")
     prof_row["without_warmup"] = {k: v for k, v in plain_window.items() if k != "top_kernels"}
 
     # all_reduce_int8 over a one-rank NCCL group: the round trip, one launch
@@ -1760,7 +1892,7 @@ def main() -> int:
             replaces=replaces[name], launches=train["launches"][name],
             max_abs_err=max(flash_rows[(s, name)]["max_abs_err"] for s in FLASH_SHAPES),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"], library=row["library"],
         ))
     for name, rows_, main_shape, path in (
         ("rmsnorm", norm_rows, "prefill768_bf16", "src/repro/kernels/rmsnorm/kernel.py:24"),

@@ -418,8 +418,7 @@ class Program:
     def serve(self, **_kw):
         """Multi-session serving arrives with the serving port."""
         raise NotImplementedError(
-            "repro_torch: Program.serve() is not ported yet (ROADMAP A7, "
-            "slice 3: StreamServe)"
+            "repro_torch: Program.serve() is not ported yet (ROADMAP A7, StreamServe)"
         )
 
     # -- the recompile-with-directives loop ------------------------------------
@@ -447,15 +446,15 @@ class Program:
     def profile(self, **_kw):
         """MILP profiling arrives with the profiling port."""
         raise NotImplementedError(
-            "repro_torch: Program.profile() is not ported yet (ROADMAP A6, "
-            "slice 2: profiling)"
+            "repro_torch: Program.profile() is not ported yet (ROADMAP A6b, "
+            "profiling and placement exploration)"
         )
 
     def explore(self, prof=None, **_kw):
         """Placement exploration needs the profiling port."""
         raise NotImplementedError(
-            "repro_torch: Program.explore() is not ported yet (ROADMAP A6, "
-            "slice 2: profiling)"
+            "repro_torch: Program.explore() is not ported yet (ROADMAP A6b, "
+            "profiling and placement exploration)"
         )
 
 

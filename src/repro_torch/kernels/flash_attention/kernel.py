@@ -9,12 +9,16 @@ kernels and how the design answers that.
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
   loaded with ``ctypes`` (``kernels/build.py``).  ``flash_init`` lifts the
-  shared-memory limit of every instantiation once per device.
+  shared-memory limit of every instantiation once per device and looks up
+  the tensor-map encoder ``cuTensorMapEncodeTiled`` at run time (no
+  ``-lcuda``).
 * **Launch.**  Each wrapper checks its inputs (CUDA, contiguous and 16-byte
   aligned, one of bfloat16/float32, ``hd`` in 16/32/64/128, sequence lengths
   a multiple of ``TILE``), allocates the outputs, launches on the current
   stream and raises on a non-zero CUDA error.  bfloat16 inputs run the
-  tensor-core (``mma.sync``) kernels, float32 inputs the CUDA-core ones.  ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and
+  tensor-core kernels (forward and dK/dV: TMA, an mbarrier ring and
+  ``wgmma``, with tensor maps encoded per launch; dQ: ``mma.sync``), float32
+  inputs the CUDA-core ones.  ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and
   ``DKV_LAUNCHES`` count the launches and nothing else.
 
 The plain versions live in ``ref.py``; ``ops.py`` picks between the two by
@@ -123,6 +127,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch
 def _check_rows(name: str, t: torch.Tensor, BH: int, Sq: int, device) -> None:
     if t.dtype != torch.float32 or tuple(t.shape) != (BH, Sq) or not t.is_contiguous():
         raise ValueError(f"flash kernels: {name} must be contiguous float32 ({BH}, {Sq})")
+    if t.data_ptr() % 16:  # the dK/dV kernel copies its rows with cp.async.bulk
+        raise ValueError(f"flash kernels: {name} must start on a 16-byte boundary")
     if t.device != device:
         raise ValueError(f"flash kernels: {name} lies on another device")
 
@@ -169,9 +175,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     """dQ in ONE kernel launch (``delta = rowsum(dO * O)``, float32)."""
     global DQ_LAUNCHES
     BH, BKV, Sq, Sk, hd = check_inputs(q, k, v, do)
-    _cuda_only(q, "flash_bwd_dq_ref")
     _check_rows("lse", lse, BH, Sq, q.device)
     _check_rows("delta", delta, BH, Sq, q.device)
+    _cuda_only(q, "flash_bwd_dq_ref")
     lib = _library(q.device)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -193,9 +199,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     """(dK, dV) per kv head, summed over its query-head group, in ONE launch."""
     global DKV_LAUNCHES
     BH, BKV, Sq, Sk, hd = check_inputs(q, k, v, do)
-    _cuda_only(q, "flash_bwd_dkv_ref")
     _check_rows("lse", lse, BH, Sq, q.device)
     _check_rows("delta", delta, BH, Sq, q.device)
+    _cuda_only(q, "flash_bwd_dkv_ref")
     lib = _library(q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

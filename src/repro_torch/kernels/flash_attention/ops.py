@@ -76,11 +76,13 @@ def flash_attention(
     """Multi-head GQA flash attention, differentiable.  Returns (B, S_q, H, hd).
 
     ``block_q``/``block_k`` tile the plain version (CPU tensors) as the
-    reference's kernel is tiled; the CUDA kernels use their own tiles."""
+    reference's kernel is tiled, and the sequence lengths must be multiples
+    of them there; the CUDA kernels use their own tiles and check what they
+    take (``kernel.check_inputs``)."""
     B, S_q, H, hd = q.shape
     _, S_k, KV, _ = k.shape
     bq, bk = min(block_q, S_q), min(block_k, S_k)
-    if S_q % bq or S_k % bk:
+    if q.device.type != "cuda" and (S_q % bq or S_k % bk):
         raise ValueError(f"flash_attention: S_q={S_q}, S_k={S_k} not multiples of blocks {bq}, {bk}")
     scale_v = scale if scale is not None else 1.0 / math.sqrt(hd)
     qf = q.transpose(1, 2).reshape(B * H, S_q, hd).contiguous()

@@ -13,10 +13,17 @@ condition for its Pallas path (no window, no cache to return):
 
 Decode (a cache given) is the reference's plain branch: scalar or per-slot
 ``(B,)`` write positions, the window mask and the ring cache, float32 scores
-and ``p`` rounded to the cache type before ``P.V``.  The new key and value are
-written into the given cache tensors IN PLACE (the reference returns updated
-copies), which saves a copy of the cache per layer and step; the same tensors
-are returned.
+and ``p`` rounded to the cache type before ``P.V``.
+
+The products of the decode and of the chunked path keep their bf16 operands
+and come out in float32, as the reference's ``preferred_element_type=
+float32`` does (``_bmm_f32``): on the card, where autograd records
+nothing, ``torch.bmm(..., out_dtype=torch.float32)`` reads the cache as it
+lies, with no float32 copy.  CPU tensors, autograd and ``use_kernels="off"``
+cast the operands to float32 first, which computes the same products.  The
+new key and value are written into the given cache tensors IN PLACE (the
+reference returns updated copies), which saves a copy of the cache per layer
+and step; the same tensors are returned.
 """
 
 from __future__ import annotations
@@ -57,16 +64,58 @@ def _pick_q_chunk(batch: int, heads: int, seq: int, budget_bytes: int = 1 << 27)
     return max(1, min(chunk, seq))
 
 
-def _attn_block(q, k, v, rows, cols, window: int, scale: float):
-    """q: (B,Q,H,hd); k/v: (B,S,H,hd); rows (Q,), cols (S,) -> (B,Q,H,hd)."""
-    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor, plain: bool) -> torch.Tensor:
+    """Batched ``a @ b`` with a float32 result, the reference's
+    ``preferred_element_type=float32``.  Half-precision operands on the card,
+    unless autograd records them or ``plain`` is set, go to ``torch.bmm(...,
+    out_dtype=torch.float32)``, which reads them as they lie.  Otherwise the
+    operands are cast to float32 first, which computes the same product: CPU
+    tensors (that call has no CPU kernel), autograd (it has no derivative)
+    and ``use_kernels="off"`` (the plain reference the kernel path is held
+    to)."""
+    graded = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if (a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16, torch.float16)
+            and not plain and not graded):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _attn_block(q, k, v, rows, cols, window: int, scale: float, plain: bool):
+    """q: (B,Q,H,hd); k/v head-major (B,H,S,hd); rows (Q,), cols (S,) ->
+    (B,Q,H,hd)."""
+    B, Q, H, hd = q.shape
+    S = k.shape[2]
+    qh = q.transpose(1, 2).reshape(B * H, Q, hd)
+    scores = _bmm_f32(qh, k.view(B * H, S, hd).transpose(1, 2), plain).view(B, H, Q, S) * scale
     keep = cols[None, :] <= rows[:, None]
     if window:
         keep &= cols[None, :] > rows[:, None] - window
     scores = scores.masked_fill(~keep[None, None], NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = _bmm_f32(p.view(B * H, Q, S), v.view(B * H, S, hd), plain)
+    return out.view(B, H, Q, hd).transpose(1, 2).to(v.dtype)
+
+
+def _cache_scores(q_g, ck, plain: bool):
+    """``einsum("bkgd,bskd->bkgs")`` in float32, reading the (B, S, kv, hd)
+    cache as it lies: one product over every (kv head, key slot) pair of a
+    batch row, of which the diagonal kv blocks are kept."""
+    B, kv, G, hd = q_g.shape
+    S = ck.shape[1]
+    full = _bmm_f32(q_g.reshape(B, kv * G, hd), ck.view(B, S * kv, hd).transpose(1, 2), plain)
+    return full.view(B, kv, G, S, kv).diagonal(dim1=1, dim2=4).permute(0, 3, 1, 2)
+
+
+def _cache_mix(p, cv, plain: bool):
+    """``einsum("bkgs,bskd->bkgd")`` in float32 from p (B, kv, G, S) and the
+    (B, S, kv, hd) cache as it lies: p spread block-diagonally over (key
+    slot, kv head), so other heads' values are multiplied by zeros."""
+    B, kv, G, S = p.shape
+    hd = cv.shape[-1]
+    blocks = p.new_zeros(B, kv, G, S, kv)
+    blocks.diagonal(dim1=1, dim2=4).copy_(p.permute(0, 2, 3, 1))
+    out = _bmm_f32(blocks.view(B, kv * G, S * kv), cv.view(B, S * kv, hd), plain)
+    return out.view(B, kv, G, hd)
 
 
 def _project_qkv(params, x, cfg, positions):
@@ -120,11 +169,11 @@ def _decode(params, q, k_new, v_new, cache, write_pos, positions, window: int,
         if window and not ring:
             keep &= cols > pos - window
         keep = keep[None, None, None, :]
-    q_g = q.reshape(B, kv, G, hd)
-    scores = torch.einsum("bkgd,bskd->bkgs", q_g.float(), ck.float()) * scale
+    plain = cfg.use_kernels == "off"
+    scores = _cache_scores(q.reshape(B, kv, G, hd), ck, plain) * scale
     scores = torch.where(keep, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(cv.dtype).float(), cv.float()).to(cv.dtype)
+    p = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = _cache_mix(p, cv, plain).to(cv.dtype)
     y = dense(out.reshape(B, S, H * hd), params["wo"])
     return y, (ck, cv)
 
@@ -165,14 +214,16 @@ def attention(
         out = flash_attention(q, k, v, causal=True)
         return dense(out.reshape(B, S, H * hd), params["wo"]), None
 
-    k_full = torch.repeat_interleave(k, G, dim=2)
-    v_full = torch.repeat_interleave(v, G, dim=2)
+    # the repeated K/V laid out head-major, once
+    k_full = torch.repeat_interleave(k.transpose(1, 2), G, dim=1).contiguous()
+    v_full = torch.repeat_interleave(v.transpose(1, 2), G, dim=1).contiguous()
+    plain = cfg.use_kernels == "off"
     cols = torch.arange(S, device=x.device)
     q_chunk = _pick_q_chunk(B, H, S)
 
     def chunk_attn(qc, j):
         rows = j * q_chunk + torch.arange(q_chunk, device=x.device)
-        return _attn_block(qc, k_full, v_full, rows, cols, window, scale)
+        return _attn_block(qc, k_full, v_full, rows, cols, window, scale, plain)
 
     def run(qc, j):
         if not torch.is_grad_enabled():  # nothing to recompute

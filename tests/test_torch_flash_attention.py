@@ -108,6 +108,10 @@ def _folded(BH=4, BKV=2, S=128, hd=64, dtype=torch.float32):
         ("contiguous", "contiguous"),
         ("groups", "do not group"),
         ("rank", r"\(BH, S, hd\)"),
+        ("seq_k", "multiples of 64"),
+        ("head_dim_8", "head dim"),
+        ("kv_shape", "k .* / v"),
+        ("aligned", "16-byte boundary"),
     ],
 )
 def test_wrapper_input_checks_raise_without_nvcc(case, match):
@@ -126,8 +130,43 @@ def test_wrapper_input_checks_raise_without_nvcc(case, match):
         q = torch.zeros(3, 128, 64)
     elif case == "rank":
         q = q[None]
+    elif case == "seq_k":
+        q, k, v = q, k[:, :96].contiguous(), v[:, :96].contiguous()
+    elif case == "head_dim_8":
+        q, k, v = _folded(hd=8)
+    elif case == "kv_shape":
+        v = v[:, :64].contiguous()
+    elif case == "aligned":
+        q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
     with pytest.raises(ValueError, match=match):
         kernel.flash_fwd_cuda(q, k, v)
+
+
+@pytest.mark.parametrize(
+    "BH,BKV,Sq,Sk,hd,causal",
+    [
+        (4, 2, 192, 192, 16, True),  # S % 128 == 64: half of the last 128-row block
+        (4, 2, 192, 192, 32, True),
+        (6, 3, 128, 128, 64, True),
+        (8, 2, 64, 64, 128, True),
+        (4, 2, 192, 320, 64, False),  # Sq != Sk
+        (4, 4, 320, 192, 128, True),
+        (72, 24, 2048, 2048, 64, False),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wrappers_accept_every_shape_the_kernels_take(BH, BKV, Sq, Sk, hd, causal, dtype):
+    q = torch.zeros(BH, Sq, hd, dtype=dtype)
+    k, v = torch.zeros(BKV, Sk, hd, dtype=dtype), torch.zeros(BKV, Sk, hd, dtype=dtype)
+    lse = torch.zeros(BH, Sq)
+    assert kernel.check_inputs(q, k, v, q) == (BH, BKV, Sq, Sk, hd)
+    # past every shape check, only the device is refused here
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.flash_fwd_cuda(q, k, v, causal=causal)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.flash_bwd_dq_cuda(q, k, v, q, lse, lse, causal=causal)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.flash_bwd_dkv_cuda(q, k, v, q, lse, lse, causal=causal)
 
 
 def test_backward_wrappers_check_rows_and_device():
@@ -139,6 +178,13 @@ def test_backward_wrappers_check_rows_and_device():
         kernel.flash_bwd_dkv_cuda(q, k, v, q.clone(), lse, lse.clone())
     with pytest.raises(ValueError, match="shaped like q"):
         kernel.flash_bwd_dq_cuda(q, k, v, q[:, :64].clone(), lse, lse.clone())
+    # contiguous rows that start 4 bytes past a 16-byte boundary
+    shifted = torch.zeros(lse.numel() + 1)[1:].view(lse.shape)
+    for wrapper in (kernel.flash_bwd_dq_cuda, kernel.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="lse must start on a 16-byte boundary"):
+            wrapper(q, k, v, q.clone(), shifted, lse.clone())
+        with pytest.raises(ValueError, match="delta must start on a 16-byte boundary"):
+            wrapper(q, k, v, q.clone(), lse, shifted)
 
 
 def test_launch_counters_stay_zero_on_cpu():

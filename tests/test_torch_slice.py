@@ -9,6 +9,7 @@ per-iteration, and a 2-partition IDCT8 == the single partition.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -112,6 +113,19 @@ def test_later_slices_raise_not_implemented():
     for call in (prog.serve, prog.profile, prog.explore):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             call()
+
+
+@pytest.mark.parametrize("entry, item", [
+    ("serve", "ROADMAP A7, StreamServe"),
+    ("profile", "ROADMAP A6b, profiling and placement exploration"),
+    ("explore", "ROADMAP A6b, profiling and placement exploration"),
+])
+def test_unported_entry_points_name_their_roadmap_item(entry, item):
+    net, _ = _build(TNETS, "IDCT8", 8)
+    prog = repro_torch.compile(net, backend="device", block=64, device="cpu")
+    with pytest.raises(NotImplementedError, match=re.escape(item)) as err:
+        getattr(prog, entry)()
+    assert "slice" not in str(err.value)
 
 
 def test_default_device_is_cuda_and_never_falls_back():
