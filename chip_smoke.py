@@ -21,7 +21,9 @@ Phases, one line or more each:
              megastep == per-iteration, 2 partitions == 1), and a second,
              instrumented run per network for the boundary breakdown.
 
-4. flash    — the three flash-attention kernels (``src/repro_torch/csrc/
+4. flash    — the bf16 kernels' ptxas reports (a spill or serialised wgmmas
+             in a backward kernel at hd 64 fails the run),
+             then the three flash-attention kernels (``src/repro_torch/csrc/
              flash_attention.cu``: forward, dQ, dK/dV) against their plain
              PyTorch versions on the card at the training path's shape
              (B=8, S=2048, H=9, KV=3, hd=64, bf16, causal), an hd=128 shape,
@@ -38,8 +40,9 @@ Phases, one line or more each:
              launch counts set to 0 just before and read just after; loss
              finite and falling; then a profiled window of three steps after
              a discarded warm-up step (``profile_window``: the device's idle
-             share, the flash kernels' ms per step, the device records beside
-             what the host enqueued), and one step with ``use_kernels="off"``
+             share, the flash kernels' ms per step, each and together, the
+             device records beside what the host enqueued), and one step with
+             ``use_kernels="off"``
              from the same parameters and batch, whose loss must match.  The
              RMSNorm kernel runs on this path too (every block norm and the
              final norm, again in each block's recompute).
@@ -67,20 +70,24 @@ Phases, one line or more each:
              ``ServingEngine`` (4 slots, 8 requests of 128-768 tokens) against
              each request's isolated generation; and ``run_serving`` on
              smollm-135m at its published widths.
-8. gmm     — the grouped-matmul kernel (``src/repro_torch/csrc/moe_gmm.cu``)
-             against its plain PyTorch version on the card at the MoE path's
-             shapes: bf16 gate/up (64, 1984, 2048) x (64, 2048, 1408), down
-             (64, 1984, 1408) x (64, 1408, 2048), decode at C = 8 and C = 6,
-             and a float32 shape; each row bitwise the same whatever C and
-             the tile height; kernel, plain and ``torch.bmm`` device times
-             (CUDA-graph replay) beside the bound.
+8. gmm     — the grouped-matmul kernel (``src/repro_torch/csrc/moe_gmm.cu``):
+             its ptxas report (a spill or serialised wgmmas fail the run),
+             then against its plain PyTorch version on the card at the MoE
+             path's shapes: bf16
+             gate/up (64, 1984, 2048) x (64, 2048, 1408), down (64, 1984,
+             1408) x (64, 1408, 2048), decode at C = 8 and C = 6, and a
+             float32 shape; each row bitwise the same whatever C and the tile
+             plan (C = 1, 6, 8, 40, 64, 65, 128, 248, 1984, and a row moved
+             to the top of its tile); kernel, plain and ``torch.bmm`` device
+             times (CUDA-graph replay) beside the bound.
 9. moe     — MoE serving, this slice's main path:
              ``run_serving("deepseek-moe-16b", reduced=False, batch=8,
              prompt_len=2048, max_new=64, device="cuda")`` with the launch
              counts set to 0 just before and read just after (84 ``moe_gmm``
              and 57 ``rmsnorm`` per forward and per decode step); prefill and
              decode tokens/s, peak memory, the init seconds and the idle
-             share of a profiled decode window (as phase 7's; the attention
+             share of a profiled decode window with ``moe_gmm``'s ms in it
+             (as phase 7's; the attention
              products read the bf16 K/V cache as it lies, with float32
              results, so no copy or elementwise kernel in it may last as
              long as reading one layer's K cache); those two products alone
@@ -115,7 +122,7 @@ Phases, one line or more each:
              a one-rank NCCL group against the round trip, bitwise.
 
 The line before the last is the card's name and power limit, the one before
-that a JSON record of the kernels; the last line is
+that a JSON record of the kernels (each with its design); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every check passed.
 Exits non-zero without a result when CUDA is not available or the package is
 missing.
@@ -496,6 +503,50 @@ def flash_bounds(B, S, H, KV, hd, dtype, causal: bool = True) -> dict:
     return out
 
 
+def ptxas_entries(log: str, name: str) -> dict:
+    """From nvcc's ``-Xptxas -v`` report, each entry function whose
+    (mangled) name holds ``name``: its registers, spill stores (bytes) and
+    the codes of ptxas's notes that it serialised the function's wgmmas
+    (C7512: too few registers; C7520: a divergent path around them)."""
+    out, cur = {}, None
+
+    def entry(fn):
+        return out.setdefault(fn, {"registers": None, "spill_stores": 0, "serialised": []})
+
+    for line in log.splitlines():
+        if "(C75" in line and "serialized" in line and "'" in line:
+            fn = line.split("'")[-2]
+            if name in fn:
+                entry(fn)["serialised"].append(line[line.index("(C75") + 1:][:5])
+        elif "Compiling entry function" in line or "Function properties for" in line:
+            cur = line.split("'")[1] if "'" in line else line.split("for ")[-1].strip()
+            cur = cur if name in cur else None
+            if cur is not None:
+                entry(cur)
+        elif cur is not None and "bytes spill stores" in line:
+            out[cur]["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif cur is not None and "Used" in line and "registers" in line:
+            out[cur]["registers"] = int(line.split("Used")[1].split("registers")[0])
+    return out
+
+
+def check_ptxas(log: str, name: str, strict) -> None:
+    """Print the ptxas line of every entry function named like ``name`` and
+    fail the run where one for which ``strict(mangled)`` holds spills or has
+    its wgmmas serialised."""
+    entries = ptxas_entries(log, name)
+    check(bool(entries), f"ptxas: no entry function named like {name} in the build report")
+    for fn, rep in sorted(entries.items()):
+        short = fn[fn.index(name):].split("EE")[0]  # the name and its template arguments
+        print(f"  ptxas {short}: {rep['registers']} registers, "
+              f"{rep['spill_stores']} bytes spill stores, wgmmas serialised: "
+              f"{','.join(rep['serialised']) or 'no'}", flush=True)
+        if strict(fn):
+            check(rep["spill_stores"] == 0, f"ptxas: {fn} spills {rep['spill_stores']} bytes")
+            check(not rep["serialised"], f"ptxas: {fn} has its wgmmas serialised "
+                                         f"({','.join(rep['serialised'])})")
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -511,6 +562,12 @@ def phase_flash() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     print("phase 4: flash kernels against their plain versions on the card", flush=True)
+    kernel.build()
+    # the backward kernels must neither spill nor have their wgmmas serialised
+    # at the path's hd 64; the forward (C7520) and the other hd are printed
+    for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma_kernel"):
+        check_ptxas(kernel.BUILD_LOG, name, lambda fn: "flash_bwd" in fn and "ILi64E" in fn)
     rows = {}
     for shape, (B, S, H, KV, hd, dtype, causal) in FLASH_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(len(rows))
@@ -783,11 +840,15 @@ def phase_train() -> dict:
         global_batch=TRAIN["global_batch"], seed=0,
     )).next_batch()
     step_k = make_train_step(cfg, opt)
-    # flash_fwd_wgmma_kernel<64>, flash_bwd_dq_mma_kernel<64>, ...
+    # flash_fwd_wgmma_kernel<64>, flash_bwd_dq_wgmma_kernel<64>, ...
     prof = profile_window(lambda: step_k(params, opt_state, batch), 3,
                           match=tuple(f"{name}_" for name in FLASH_NAMES))
     print("  " + json.dumps({"profiled": prof}), flush=True)
     check_window(prof, "train: profiled window")
+    per_kernel = {name: prof["matched"][f"{name}_"]["ms_per_call"] for name in FLASH_NAMES}
+    print("  flash ms per training step: " + ", ".join(
+        f"{name} {ms:.3f}" for name, ms in per_kernel.items())
+        + f"; all {sum(per_kernel.values()):.3f}", flush=True)
     row["profiled"] = prof
 
     _, _, m_k = step_k(params, opt_state, batch)
@@ -994,9 +1055,10 @@ def isolated(cfg, params, prompt, max_new, max_len, eos_id=2):
             pos += 1
 
 
-def profiled_decode(cfg, params, n: int = 16) -> dict:
+def profiled_decode(cfg, params, n: int = 16, match=()) -> dict:
     """Device busy and idle share over ``n`` decode steps at the main path's
-    batch, after a prefill of its prompt length (``profile_window``)."""
+    batch, after a prefill of its prompt length (``profile_window``; the
+    device time of the kernels named like ``match``)."""
     from repro_torch.launch.serve import prefill_cache
     from repro_torch.model import lm
 
@@ -1014,7 +1076,7 @@ def profiled_decode(cfg, params, n: int = 16) -> dict:
         state["pos"] += 1
 
     with torch.inference_mode():
-        prof = profile_window(step, n)
+        prof = profile_window(step, n, match=match)
     prof["cache_len"] = cache_len
     check_window(prof, f"{cfg.name}: profiled decode")
     return prof
@@ -1348,11 +1410,37 @@ def gmm_work(E, C, d, f, dtype) -> dict:
     return bound(2 * E * C * d * f, esz * (E * C * d + E * d * f + E * C * f), peak)
 
 
+# a row's result against C: the path's (8, 6, 248, 1984), either side of the
+# tile plan's one switch (64 / 65 rows: one warpgroup a block, or two), and a
+# lone row
+GMM_SAME_ROWS_C = (1, 6, 8, 40, 64, 65, 128, 248, 1984)
+
+
+def same_rows(gmm, x, w, got, g) -> None:
+    """Every row summed in one order whatever C and the tile plan: the decode
+    rows ``x`` (C = 8, result ``got``) followed by more rows, launched at each
+    C of ``GMM_SAME_ROWS_C``, and one row moved to the top of its tile."""
+    E, C, d = x.shape
+    more = torch.randn(E, max(GMM_SAME_ROWS_C) - C, d, generator=g, device="cuda").to(x.dtype)
+    rows = torch.cat([x, more], 1)
+    full = gmm.grouped_matmul_cuda(rows, w)
+    same = {"moved row": torch.equal(gmm.grouped_matmul_cuda(x[:, 5:6].contiguous(), w),
+                                     got[:, 5:6]),
+            "C=8 in C=1984": torch.equal(full[:, :C], got)}
+    for c in GMM_SAME_ROWS_C:
+        same[f"C={c} wgs={gmm.tile_plan(c)}"] = torch.equal(
+            gmm.grouped_matmul_cuda(rows[:, :c].contiguous(), w), full[:, :c])
+    print(f"  moe_gmm rows bitwise equal across C and warpgroups a block: {same}", flush=True)
+    check(all(same.values()), f"moe_gmm: a row's result depends on C or its tile ({same})")
+
+
 def phase_gmm() -> dict:
     from repro_torch.kernels.moe_gmm import kernel as gmm
     from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
 
     print("phase 8: grouped-matmul kernel against its plain version on the card", flush=True)
+    gmm.build()
+    check_ptxas(gmm.BUILD_LOG, "gmm_wgmma_kernel", lambda fn: True)
     rows = {}
     for seed, (shape, (E, C, d, f, dtype)) in enumerate(GMM_SHAPES.items()):
         g = torch.Generator(device="cuda").manual_seed(300 + seed)
@@ -1365,19 +1453,7 @@ def phase_gmm() -> dict:
                                      f"(max abs err {max_err(got, want):.3g})")
         check(bool(torch.isfinite(got).all()), f"moe_gmm {shape}: non-finite kernel output")
         if shape == "decode8":
-            # every row summed in one order whatever C and the tile height (16,
-            # 64 or 128 rows): the same rows launched at C = 6, 1, 40 and 128
-            more = torch.randn(E, 120, d, generator=g, device="cuda").to(dtype)
-            same = [
-                torch.equal(gmm.grouped_matmul_cuda(x[:, :6].contiguous(), w), got[:, :6]),
-                torch.equal(gmm.grouped_matmul_cuda(x[:, 5:6].contiguous(), w), got[:, 5:6]),
-                torch.equal(gmm.grouped_matmul_cuda(
-                    torch.cat([x, more[:, :32]], 1), w)[:, :8], got),
-                torch.equal(gmm.grouped_matmul_cuda(torch.cat([x, more], 1), w)[:, :8], got),
-            ]
-            print(f"  moe_gmm rows bitwise equal across C = 8 / 6, 1, 40, 128: {same}",
-                  flush=True)
-            check(all(same), f"moe_gmm: a row's result depends on C or its tile ({same})")
+            same_rows(gmm, x, w, got, g)
 
         def kern():
             return gmm.grouped_matmul_cuda(x, w)
@@ -1488,8 +1564,15 @@ def phase_moe_serve() -> dict:
     print(f"  init_model: {n_params} parameters in {init_s:.3f}s, "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated", flush=True)
 
-    prof = profiled_decode(cfg, params)
+    prof = profiled_decode(cfg, params, match=("gmm_wgmma_kernel",))
     print("  " + json.dumps({"profiled_decode": prof}), flush=True)
+    gmm_step = prof["matched"]["gmm_wgmma_kernel"]
+    print(f"  moe_gmm per decode step: {gmm_step['ms_per_call']:.3f} ms in "
+          f"{gmm_step['launches_per_call']:.0f} launches, of {prof['device_busy_ms_per_call']:.3f} "
+          f"ms device busy; prefill {main['prefill_tokens_per_s']:.1f} tokens/s, decode "
+          f"{main['decode_tokens_per_s']:.2f} tokens/s", flush=True)
+    check(gmm_step["launches_per_call"] == GMM_PER_FORWARD[MOE_ARCH],
+          f"moe: {gmm_step['launches_per_call']} moe_gmm launches per profiled decode step")
     # the attention decode reads the bf16 K/V cache as it lies: no copy or
     # cast of a layer's cache, which could not take less than reading it once
     cache_read_us = (SERVE["batch"] * prof["cache_len"] * cfg.num_kv_heads
@@ -1879,7 +1962,20 @@ def main() -> int:
             ),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
+            design="bytecode interpreter over a wire stack in shared memory (PR 11)",
         ))
+    designs = {
+        "flash_fwd": "wgmma, TMA tensor maps, mbarrier ring (PR 16)",
+        "flash_bwd_dq": "wgmma, TMA tensor maps, mbarrier ring; dS.K reads the K tile "
+                        "MN-major (PR 17)",
+        "flash_bwd_dkv": "wgmma, TMA tensor maps, mbarrier ring (PR 16); ex2.approx as dQ "
+                         "(PR 17)",
+        "rmsnorm": "one warp per row, no shared memory (PR 13)",
+        "ssd_scan": "chunked scan on the CUDA cores in float32 (PR 13)",
+        "moe_gmm": "wgmma m64n256k16 (n128 on a last narrow tile), 3-d TMA tensor maps, "
+                   "mbarrier ring, a producer warpgroup (PR 17)",
+        "quantize_int8": "one block per row, two passes over it (PR 15)",
+    }
     replaces = {
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:79",
         "flash_bwd_dq": "src/repro/kernels/flash_attention/kernel.py:235",
@@ -1893,6 +1989,7 @@ def main() -> int:
             max_abs_err=max(flash_rows[(s, name)]["max_abs_err"] for s in FLASH_SHAPES),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], library=row["library"],
+            design=designs[name],
         ))
     for name, rows_, main_shape, path in (
         ("rmsnorm", norm_rows, "prefill768_bf16", "src/repro/kernels/rmsnorm/kernel.py:24"),
@@ -1904,7 +2001,7 @@ def main() -> int:
             replaces=path, launches=serve["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in rows_.values()),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs[name],
         ))
     row = gmm_rows["prefill"]
     record["kernels"].append(dict(
@@ -1912,7 +2009,7 @@ def main() -> int:
         replaces="src/repro/kernels/moe_gmm/kernel.py:37", launches=moe["launches"]["moe_gmm"],
         max_abs_err=max(r["max_abs_err"] for r in gmm_rows.values()),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs["moe_gmm"],
     ))
     row = quant_rows["embed"]
     record["kernels"].append(dict(
@@ -1920,7 +2017,7 @@ def main() -> int:
         replaces="src/repro/kernels/quant/kernel.py:24", launches=compress["launches"],
         max_abs_err=max(r["max_abs_err"] for r in quant_rows.values()),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs["quantize_int8"],
     ))
     print(json.dumps(record))
     print(card)

@@ -9,15 +9,29 @@
 //
 // Two designs:
 //
-//   bfloat16: the tensor cores through warp-level mma.sync.m16n8k16 (bf16 in,
-//   float32 accumulate), as csrc/flash_attention.cu's products.  A block owns
-//   a BM x 128 output tile of one expert and loops over d in steps of 32:
-//   the x tile (BM x 32) and the w tile (32 x 128) go into shared memory with
-//   cp.async (16 bytes a copy, a 3-stage ring, so two tiles are in flight
-//   while one is multiplied), and ldmatrix loads the mma fragments from
-//   there (.trans for w, which is k-major as flash's V tile is).  Rows of x
-//   past C are copied as zeros (cp.async with a source size of 0) and never
-//   stored, so any C works; columns past f likewise, in steps of 8.
+//   bfloat16 (gmm_wgmma_kernel): built for Hopper as the flash kernels are
+//   (hopper.cuh).  A block owns one output tile, (64 WGS) rows x 256 columns
+//   of one expert: WGS consumer warpgroups of 64 rows each and a producer
+//   warpgroup, one thread of which keeps a ring of shared-memory stages (5
+//   with one consumer, 4 with two) full through TMA, behind mbarrier
+//   full/empty pairs, so the loads of the next stages are in flight while
+//   the tensor cores work.  A stage is 64 of d: the x tile through a 3-d
+//   tensor map (d, C, E), K-major, whose rows past C inside an expert read
+//   as zeros (a decode's 8 rows cost one 64-row tile, with no predicated
+//   copies and no read of the next expert), and the w tile through a 3-d
+//   map (f, d, E) as stored, f contiguous, in 64-column boxes that wgmma
+//   reads MN-major (the transpose bit): nothing is transposed or staged
+//   through registers.  Both are swizzled at 128 B rows.  Each consumer runs
+//   one wgmma.m64n256k16 (bf16 in, float32 accumulate) a k-step, or
+//   m64n128k16 on a last tile of at most 128 columns (f = 1408), keeps one
+//   stage's products in flight while it waits for the next, and converts
+//   its accumulator to bf16 once, storing rows r < C and columns c < f.
+//   Columns and d past the tensor read as zeros too, so d % 8 == 0 and
+//   f % 8 == 0 (TMA's 16-byte row strides) are all it needs.  Timed on the
+//   card and no faster: 128- and 176-column tiles, two n128 instructions
+//   for one n256, a persistent grid (one block per SM walking the tiles),
+//   and clusters of two blocks on consecutive row tiles multicasting their
+//   w tile.
 //
 //   float32: the CUDA cores (no TF32: the reference's float32 tolerance is
 //   3e-4).  A block owns a 64 x 64 output tile and loops over d in steps of
@@ -26,185 +40,141 @@
 //
 // One order of summation per output element.  In both designs an element's
 // sum over d runs in one fixed order that depends on d alone: ascending
-// k-steps of 16 (one mma each, float32 accumulator) for bfloat16, ascending
-// d for float32.  There is no split of d chosen by shape, and the tile
-// height BM (128, 64 or 16 rows, picked from C so that a decode's few rows
-// do not pay for 128) changes which rows share a block, never how a row is
-// summed.  So a row of the output is bitwise the same whatever C is and
-// wherever the row sits in its tile: the serving engine's batched decode
-// (C = 8) and a request decoded alone (C = 6) compute the same rows.
+// stages of 64 and, inside a stage, ascending wgmma k-steps of 16 into one
+// float32 accumulator for bfloat16; ascending d for float32.  There is no
+// split of d chosen by shape, and every bf16 tile is 256 columns wide.  The
+// caller's tile plan (kernel.py tile_plan) picks from C only how many 64-row
+// warpgroups a block has (and so how many blocks there are), and a column's
+// instruction (n256, or n128 on a narrow last tile) depends on f alone; a
+// row always sits at the same place in its warpgroup's 64 rows.  So a row of the output is
+// bitwise the same whatever C is: the serving engine's batched decode (C =
+// 8) and a request decoded alone (C = 6) compute the same rows, as do a
+// prefill and a decode.
 //
 // What bounds it.  At the MoE prefill shape (64 experts, 1984 rows, d 2048,
 // f 1408, bf16) the work is 732 GFLOP on 1.25 GB: operations bound it (0.74
-// ms at 989 TFLOP/s).  At a decode shape (C = 8) it reads every expert's
-// weights (369 MB) for 3 GFLOP: bytes bound it (0.11 ms at 3.35 TB/s), and
-// the small tile keeps the wasted mma work below the byte time.  Not yet:
-// wgmma, TMA, a warp-specialised pipeline.
+// ms at 989 TFLOP/s), so the tensor cores have to be fed without a pause:
+// the ring and the 256-wide warpgroup instruction, with no wasted half tile
+// at f = 1408.  At a decode shape (C = 8) it reads every expert's weights
+// (369 MB) for 3 GFLOP: bytes bound it (0.11 ms at 3.35 TB/s), and the
+// decode plan (one consumer warpgroup, a 5-stage ring) keeps 160 KB of w in
+// flight on every SM; its 64-row instructions do 8x the useful tensor work,
+// still under the byte time.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// bfloat16: TMA, an mbarrier ring and wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int BN = 128;       // output columns per block
-constexpr int BK = 32;        // d per pipeline stage (two mma k-steps)
-constexpr int STAGES = 3;
-constexpr int LDA = BK + 8;   // padded row strides (bf16): 80 B and 272 B rows
-constexpr int LDB = BN + 8;   //   keep every ldmatrix phase free of bank conflicts
+constexpr int GMM_BN = 256;             // output columns per tile: one wgmma.m64n256k16 a k-step
+constexpr int GMM_BK = 64;              // d per stage
+constexpr int GMM_ROWB = 128;           // bytes of a 64-wide bf16 row chunk (the swizzle)
+constexpr int GMM_BOX = 64 * GMM_ROWB;  // one 64 x 64 box of w: 8 KB
+constexpr int GMM_SMEM_MAX = 232448;    // dynamic shared memory a block can have
 
-template <int BM>
-constexpr int smem_bytes() {
-  return STAGES * (BM * LDA + BK * LDB) * (int)sizeof(bf16);
-}
+// WGS consumer warpgroups of 64 rows
+template <int WGS> struct GmmCfg {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int THREADS = 128 * (WGS + 1);
+  static constexpr int A_BYTES = BM * GMM_ROWB;                // x: BM rows of 64
+  static constexpr int B_BYTES = (GMM_BN / 64) * GMM_BOX;      // w: 64 rows of 256, in 64-column boxes
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  // the deepest ring that fits, at most 8 stages: 5 (one warpgroup), 4 (two)
+  static constexpr int ST = (GMM_SMEM_MAX - 2048) / STAGE < 8 ? (GMM_SMEM_MAX - 2048) / STAGE : 8;
+  static constexpr int SMEM = 1024 + ST * STAGE + 2 * ST * 8;
+};
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // a source size of 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
+// One output tile a block: block (x, y, z) owns columns [256 x, 256 x + 256)
+// and rows [BM y, BM y + BM) of expert z.
+template <int WGS>
+__global__ void __launch_bounds__(GmmCfg<WGS>::THREADS, 1) gmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+    bf16* __restrict__ y, int C, int d, int f) {
+  using G = GmmCfg<WGS>;
+  constexpr int ST = G::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = (unsigned char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = (uint64_t*)(ring + ST * G::STAGE);  // stage s: x at ring + s STAGE, w after it
+  uint64_t* empty = full + ST;
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+  const int n0 = blockIdx.x * GMM_BN, m0 = blockIdx.y * G::BM, e = blockIdx.z;
+  const int KT = (d + GMM_BK - 1) / GMM_BK;
+  // a last tile of at most 128 columns (f = 1408 = 5.5 x 256) takes the n128
+  // instruction and loads half the w boxes: a column's instruction depends
+  // on f, never on C
+  const bool narrow = f - n0 <= 128;
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// the four 8x8 b16 matrices whose rows lanes 0-7, 8-15, 16-23, 24-31 address
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c += a * b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B
-// (k-major fragment) and a 16x8 float32 C
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// BM rows per block; the 8 warps tile the BM x 128 output as WM x (8 / WM)
-template <int BM, int WM>
-__global__ void __launch_bounds__(THREADS)
-gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ y,
-               int C, int d, int f) {
-  constexpr int WN = 8 / WM;
-  constexpr int TM = BM / WM, TN = BN / WN;  // one warp's output tile
-  constexpr int MF = TM / 16, NF = TN / 8;   // its mma fragments
-  static_assert(MF >= 1 && NF % 2 == 0, "tile shape");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][BM][LDA]
-  bf16* Bs = As + STAGES * BM * LDA;             // [STAGES][BK][LDB]
-
-  const int e = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const bf16* xe = x + (size_t)e * C * d;
-  const bf16* we = w + (size_t)e * d * f;
-
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    bf16* as = As + stage * BM * LDA;
-    bf16* bs = Bs + stage * BK * LDB;
-    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = row0 + r < C;
-      cp_async16(as + r * LDA + c, ok ? xe + (size_t)(row0 + r) * d + k0 + c : xe, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WGS);
     }
-    for (int i = tid; i < BK * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bool ok = col0 + c < f;
-      cp_async16(bs + r * LDB + c, ok ? we + (size_t)(k0 + r) * f + col0 + c : we, ok);
-    }
-  };
-
-  float acc[MF][NF][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int KT = d / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_tile(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies) ...
-    __syncthreads();              // ... everyone's, and stage kt-1 is free again
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_tile(nk % STAGES, nk);
-    cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * BM * LDA + (wm * TM) * LDA;
-    const bf16* bs = Bs + (kt % STAGES) * BK * LDB + wn * TN;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[MF][4], b[NF][2];
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-        ldmatrix_x4(a[i], as + (i * 16 + lane % 16) * LDA + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < NF; j += 2) {
-        // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-        const int mi = lane / 8;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk + (mi & 1) * 8 + lane % 8) * LDB + j * 8 + (mi >> 1) * 8);
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == WGS) {  // the producer warpgroup: one thread keeps the ring full
+    if constexpr (WGS > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == WGS * 128) {
+      const int boxes = narrow ? 2 : GMM_BN / 64;
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % ST;
+        if (kt >= ST) mbar_wait(&empty[s], ((kt / ST) & 1) ^ 1);
+        unsigned char* a = ring + s * G::STAGE;
+        mbar_expect_tx(&full[s], G::A_BYTES + boxes * GMM_BOX);
+        tma_load_3d(a, &tx, &full[s], kt * GMM_BK, m0, e);
+        for (int c = 0; c < boxes; ++c)
+          tma_load_3d(a + G::A_BYTES + c * GMM_BOX, &tw, &full[s], n0 + 64 * c, kt * GMM_BK, e);
       }
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-#pragma unroll
-        for (int j = 0; j < NF; ++j) mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
     }
-  }
-  cp_async_wait<0>();
+  } else {  // consumers: 64 rows each
+    if constexpr (WGS > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, tig = lane % 4;
+    const uint32_t ring_addr = smem_u32(ring);
+    float acc[GMM_BN / 2];  // rows (warp 16 + g) (+8), columns 8 j + 2 tig (+1)
+    zero(acc);
+    // the tile's products into d (float[64]: the n128 instruction, which
+    // writes the first 128 columns' registers; float[128]: n256)
+    auto mainloop = [&](auto& d) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % ST;
+        mbar_wait(&full[s], (kt / ST) & 1);
+        const uint32_t a = ring_addr + s * G::STAGE, b = a + G::A_BYTES;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < GMM_BK / 16; ++kk)
+          wgmma_ss<1>(d, desc_kmajor<GMM_ROWB, G::BM>(a, wg * 64, kk),
+                      desc_mnmajor<GMM_ROWB, 64>(b, kk), 1);
+        wg_commit();
+        // the previous stage's products are done: hand its slot back
+        wg_wait<1>();
+        if (kt > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[(kt - 1) % ST]);
+        }
+      }
+    };
+    if (narrow) mainloop(*reinterpret_cast<float(*)[64]>(acc));
+    else mainloop(acc);
+    wg_wait<0>();
+    hold(acc);
 
-  const int g = lane / 4, tig = lane % 4;
-  bf16* ye = y + (size_t)e * C * f;
+    const int r = m0 + wg * 64 + warp * 16 + g;
+    bf16* ye = y + (size_t)e * C * f;
 #pragma unroll
-  for (int i = 0; i < MF; ++i) {
-    const int r = row0 + wm * TM + i * 16 + g;
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int c = col0 + wn * TN + j * 8 + 2 * tig;
+    for (int j = 0; j < GMM_BN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * tig;
       if (c >= f) continue;
       if (r < C)
-        *reinterpret_cast<uint32_t*>(ye + (size_t)r * f + c) = pack_bf16(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<uint32_t*>(ye + (size_t)r * f + c) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
       if (r + 8 < C)
         *reinterpret_cast<uint32_t*>(ye + (size_t)(r + 8) * f + c) =
-            pack_bf16(acc[i][j][2], acc[i][j][3]);
+            pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
@@ -213,6 +183,7 @@ gmm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __r
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
+constexpr int THREADS = 256;  // 8 warps
 constexpr int FT = 64;  // output tile (rows and columns)
 constexpr int FK = 16;  // d per step
 
@@ -274,45 +245,50 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, float* 
 // dispatch
 // ---------------------------------------------------------------------------
 
-template <int BM, int WM>
-int launch_mma(const void* x, const void* w, void* y, int E, int C, int d, int f,
-               cudaStream_t st) {
-  const dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
-  gmm_mma_kernel<BM, WM><<<grid, THREADS, smem_bytes<BM>(), st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y), C, d, f);
+template <int WGS>
+int launch_wgmma(const void* x, const void* w, void* y, int E, int C, int d, int f,
+                 cudaStream_t st) {
+  using G = GmmCfg<WGS>;
+  CUtensorMap tx, tw;
+  int err = tensor_map_3d(&tx, x, d, C, E, GMM_BK, G::BM);
+  if (err == 0) err = tensor_map_3d(&tw, w, f, d, E, 64, GMM_BK);
+  if (err != 0) return err;
+  const dim3 grid((f + GMM_BN - 1) / GMM_BN, (C + G::BM - 1) / G::BM, E);
+  gmm_wgmma_kernel<WGS><<<grid, G::THREADS, G::SMEM, st>>>(tx, tw, static_cast<bf16*>(y), C, d, f);
   return (int)cudaGetLastError();
+}
+
+template <int WGS> int set_smem_limit() {
+  return (int)cudaFuncSetAttribute(gmm_wgmma_kernel<WGS>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   GmmCfg<WGS>::SMEM);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Lift the dynamic shared-memory limit of the bf16 kernels above 48 KB (56
-// KB for the 128-row tile): once per device, before the first launch.
+// Fetch the tensor-map encoder and lift the dynamic shared-memory limit of the bf16 kernels above
+// 48 KB: once per device, before the first launch.
 int moe_gmm_init() {
-  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  const int errs[3] = {
-      (int)cudaFuncSetAttribute(gmm_mma_kernel<128, 2>, a, smem_bytes<128>()),
-      (int)cudaFuncSetAttribute(gmm_mma_kernel<64, 2>, a, smem_bytes<64>()),
-      (int)cudaFuncSetAttribute(gmm_mma_kernel<16, 1>, a, smem_bytes<16>()),
-  };
+  const int errs[3] = {load_encode_tiled(), set_smem_limit<1>(), set_smem_limit<2>()};
   for (int e : errs)
     if (e != 0) return e;
   return 0;
 }
 
 // x (E, C, d), w (E, d, f), y (E, C, f), contiguous, one type (bf16 != 0:
-// bfloat16, with d % 32 == 0, f % 8 == 0 and 16-byte aligned bases; else
-// float32, any sizes).  Returns the CUDA error of the launch (0: launched).
+// bfloat16, with d % 8 == 0, f % 8 == 0 and 16-byte aligned bases, with wgs
+// = 1 or 2 consumer warpgroups a block; else float32, any sizes).  Returns the CUDA error of the launch (0: launched).
 int moe_gmm_launch(const void* x, const void* w, void* y, int E, int C, int d, int f, int bf16_,
-                   void* stream) {
+                   int wgs, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E == 0 || C == 0 || f == 0) return 0;
   if (bf16_) {
-    if (d % BK || f % 8 || d == 0) return (int)cudaErrorInvalidValue;
-    if (C <= 16) return launch_mma<16, 1>(x, w, y, E, C, d, f, st);
-    if (C <= 64) return launch_mma<64, 2>(x, w, y, E, C, d, f, st);
-    return launch_mma<128, 2>(x, w, y, E, C, d, f, st);
+    if (d % 8 || f % 8 || d == 0) return (int)cudaErrorInvalidValue;
+    if (wgs == 1) return launch_wgmma<1>(x, w, y, E, C, d, f, st);
+    if (wgs == 2) return launch_wgmma<2>(x, w, y, E, C, d, f, st);
+    return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((f + FT - 1) / FT, (C + FT - 1) / FT, E);
   gmm_f32_kernel<<<grid, THREADS, 0, st>>>(static_cast<const float*>(x),

@@ -16,10 +16,9 @@ kernels and how the design answers that.
   aligned, one of bfloat16/float32, ``hd`` in 16/32/64/128, sequence lengths
   a multiple of ``TILE``), allocates the outputs, launches on the current
   stream and raises on a non-zero CUDA error.  bfloat16 inputs run the
-  tensor-core kernels (forward and dK/dV: TMA, an mbarrier ring and
-  ``wgmma``, with tensor maps encoded per launch; dQ: ``mma.sync``), float32
-  inputs the CUDA-core ones.  ``FWD_LAUNCHES``, ``DQ_LAUNCHES`` and
-  ``DKV_LAUNCHES`` count the launches and nothing else.
+  tensor-core kernels (TMA, an mbarrier ring and ``wgmma``, with tensor maps
+  encoded per launch), float32 inputs the CUDA-core ones.  ``FWD_LAUNCHES``,
+  ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count the launches and nothing else.
 
 The plain versions live in ``ref.py``; ``ops.py`` picks between the two by
 the device of the tensors.
@@ -127,7 +126,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch
 def _check_rows(name: str, t: torch.Tensor, BH: int, Sq: int, device) -> None:
     if t.dtype != torch.float32 or tuple(t.shape) != (BH, Sq) or not t.is_contiguous():
         raise ValueError(f"flash kernels: {name} must be contiguous float32 ({BH}, {Sq})")
-    if t.data_ptr() % 16:  # the dK/dV kernel copies its rows with cp.async.bulk
+    if t.data_ptr() % 16:  # the bf16 backward kernels copy rows with cp.async.bulk
         raise ValueError(f"flash kernels: {name} must start on a 16-byte boundary")
     if t.device != device:
         raise ValueError(f"flash kernels: {name} lies on another device")

@@ -6,21 +6,26 @@ header note says what bounds the kernel and how the design answers that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
-  loaded with ``ctypes`` (``kernels/build.py``).  ``moe_gmm_init`` lifts the
-  shared-memory limit of the bfloat16 kernels once per device.
+  loaded with ``ctypes`` (``kernels/build.py``).  ``moe_gmm_init`` looks up
+  the tensor-map encoder and lifts the shared-memory limit of the bfloat16
+  kernels once per device.
+* **Tile plan.**  ``tile_plan(C)`` picks from ``C`` only how many 64-row
+  warpgroups a bfloat16 block has (and so how many blocks there are), never
+  the instructions, so that a row's sum runs in one order whatever ``C`` is
+  (the source's header note).
 * **Launch.**  ``grouped_matmul_cuda`` checks its inputs (CUDA tensors on one
   device, contiguous, one type, bfloat16 or float32, ``x (E, C, d)`` and ``w
-  (E, d, f)``; bfloat16 needs ``d % 32 == 0``, ``f % 8 == 0`` and 16-byte
-  aligned bases), allocates the output, launches on the current stream and
-  raises on a non-zero CUDA error.  ``LAUNCHES`` counts the launches and
-  nothing else.
+  (E, d, f)``; bfloat16 needs ``d % 8 == 0``, ``f % 8 == 0`` and 16-byte
+  aligned bases, which the kernel's tensor maps require), allocates the
+  output, launches on the current stream and raises on a non-zero CUDA
+  error.  ``LAUNCHES`` counts the launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Set
+from typing import Optional, Set, Tuple
 
 import torch
 
@@ -33,7 +38,7 @@ BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 SOURCE = CSRC / "moe_gmm.cu"
 NVCC_FLAGS = COMMON_FLAGS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BF16_K = 32  # csrc/moe_gmm.cu BK: d per pipeline stage of the bfloat16 kernel
+BF16_ALIGN = 8  # d and f: TMA's row strides are multiples of 16 bytes
 
 _lock = threading.Lock()
 _lib = None
@@ -52,8 +57,8 @@ def build() -> ctypes.CDLL:
         lib.moe_gmm_init.restype = i
         lib.moe_gmm_init.argtypes = []
         lib.moe_gmm_launch.restype = i
-        # x w y E C d f bf16 stream
-        lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+        # x w y E C d f bf16 wgs stream
+        lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
         _lib = lib
         return lib
 
@@ -71,8 +76,19 @@ def _library(dev: torch.device) -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(x: torch.Tensor, w: torch.Tensor) -> None:
-    """Validate what the kernel takes; raises ``ValueError``."""
+def tile_plan(C: int) -> int:
+    """The bfloat16 kernel's consumer warpgroups of 64 rows a block for ``C``
+    rows an expert: one up to 64 rows (a decode: its smaller stage leaves
+    room for a deeper ring of w), two above.  It is all that ``C`` picks:
+    every instruction, and so the order of a row's sum, is fixed by the
+    kernel whatever ``C`` is."""
+    return 1 if C <= 64 else 2
+
+
+def check_inputs(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Validate what the kernel takes; returns ``(E, C, d, f)``.  The device
+    is checked last, so a CPU tensor that passes every other check is refused
+    for its device alone.  Raises ``ValueError``."""
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
         raise ValueError(
             f"moe_gmm kernel: x is (E, C, d) and w (E, d, f), got {tuple(x.shape)}, "
@@ -90,10 +106,10 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor) -> None:
     if E >= 2**16 or C >= 2**22 or max(d, f) >= 2**31:  # grid limits, int sizes
         raise ValueError(f"moe_gmm kernel: {tuple(x.shape)} x {tuple(w.shape)} is too large")
     if x.dtype == torch.bfloat16:
-        if d == 0 or d % BF16_K or f % 8:
+        if d == 0 or d % BF16_ALIGN or f % BF16_ALIGN:
             raise ValueError(
-                f"moe_gmm kernel: bfloat16 needs d % {BF16_K} == 0 and f % 8 == 0, got d={d}, "
-                f"f={f}"
+                f"moe_gmm kernel: bfloat16 needs d % {BF16_ALIGN} == 0 (d > 0) and "
+                f"f % {BF16_ALIGN} == 0, got d={d}, f={f}"
             )
         if x.data_ptr() % 16 or w.data_ptr() % 16:
             raise ValueError("moe_gmm kernel: bfloat16 inputs must start on a 16-byte boundary")
@@ -104,22 +120,21 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor) -> None:
         )
     if x.device != w.device:
         raise ValueError("moe_gmm kernel: x and w lie on different devices")
+    return E, C, d, f
 
 
 def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``y[e] = x[e] @ w[e]`` for ``x (E, C, d)``, ``w (E, d, f)`` in ONE
     kernel launch; float32 accumulation, one rounding to ``x.dtype``."""
     global LAUNCHES
-    check_inputs(x, w)
+    E, C, d, f = check_inputs(x, w)
     lib = _library(x.device)
-    E, C, d = x.shape
-    f = w.shape[2]
     y = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     if E and C and f:
         with torch.cuda.device(x.device):
             err = lib.moe_gmm_launch(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), E, C, d, f, DTYPES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream,
+                tile_plan(C), torch.cuda.current_stream(x.device).cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"moe_gmm launch failed: CUDA error {err}")

@@ -1,0 +1,85 @@
+"""The kernel build's library name: a hash of the CUDA source, every local
+header it includes and the flags, so that an edit to a shared header
+(``csrc/hopper.cuh``) never reuses a stale library.  No ``nvcc`` is needed:
+the tag is computed from the files alone."""
+
+import stat
+import sys
+from pathlib import Path
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import CSRC, local_sources, source_tag
+
+FLAGS = ("-O3", "-std=c++17")
+
+
+def _tree(tmp_path: Path) -> Path:
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "prims.cuh").write_text('#pragma once\n#include "inc/deep.cuh"\nint prim();\n')
+    (tmp_path / "inc" / "deep.cuh").write_text("#pragma once\nint deep();\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda.h>\n#include "prims.cuh"\n  #  include "prims.cuh"\n'
+                   "int k() { return prim(); }\n")
+    return src
+
+
+def test_tag_changes_when_an_included_header_changes(tmp_path):
+    src = _tree(tmp_path)
+    before = source_tag(src, FLAGS)
+    assert source_tag(src, FLAGS) == before  # a pure function of the files and flags
+    header = tmp_path / "prims.cuh"
+    header.write_text(header.read_text() + "int prim2();\n")
+    after = source_tag(src, FLAGS)
+    assert after != before
+    deep = tmp_path / "inc" / "deep.cuh"  # included by the header, not the source
+    deep.write_text(deep.read_text() + "int deep2();\n")
+    assert source_tag(src, FLAGS) not in (before, after)
+
+
+def test_tag_changes_with_the_source_and_the_flags(tmp_path):
+    src = _tree(tmp_path)
+    before = source_tag(src, FLAGS)
+    assert source_tag(src, (*FLAGS, "-DTILE=128")) != before
+    src.write_text(src.read_text() + "int k2();\n")
+    assert source_tag(src, FLAGS) != before
+
+
+def test_local_sources_follow_quoted_includes_once(tmp_path):
+    src = _tree(tmp_path)
+    assert [p.name for p in local_sources(src)] == ["k.cu", "prims.cuh", "deep.cuh"]
+
+
+def test_port_sources_hash_the_shared_hopper_header():
+    """Both tensor-core sources include csrc/hopper.cuh, so its edits rebuild
+    both libraries."""
+    for name in ("flash_attention.cu", "moe_gmm.cu"):
+        assert [p.name for p in local_sources(CSRC / name)] == [name, "hopper.cuh"]
+    for name in ("stream_fused.cu", "rmsnorm.cu", "ssd_scan.cu", "quant.cu"):
+        assert [p.name for p in local_sources(CSRC / name)] == [name]
+
+
+def test_build_library_renames_report_and_library_into_place(tmp_path, monkeypatch):
+    """A stand-in for nvcc writes the library and prints a ptxas report: both
+    land under their final names, the report returned with the library, and
+    no temporary file is left; a second call builds nothing and returns the
+    kept report."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('lib')\n"
+        "sys.stderr.write('ptxas info    : Used 30 registers\\n')\n"
+    )
+    fake.chmod(fake.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    src = _tree(tmp_path)
+    lib, _, log = build.build_library(src, FLAGS)
+    assert "Used 30 registers" in log
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
+        f"k_{source_tag(src, FLAGS)}.log", f"k_{source_tag(src, FLAGS)}.so"]
+    assert lib.endswith(f"k_{source_tag(src, FLAGS)}.so")
+    monkeypatch.setattr(build, "nvcc", lambda: "/nonexistent/nvcc")
+    assert build.build_library(src, FLAGS)[2] == log

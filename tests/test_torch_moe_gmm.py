@@ -76,8 +76,12 @@ def test_plain_version_rounds_once():
         ("mixed_dtype", "both bfloat16 or both float32"),
         ("contiguous", "contiguous"),
         ("shape", r"\(E, C, d\)"),
-        ("bf16_d", "d % 32"),
+        ("bf16_d", "d % 8"),
         ("bf16_f", "f % 8"),
+        ("bf16_d0", "d % 8"),
+        ("bf16_x_base", "16-byte boundary"),
+        ("bf16_w_base", "16-byte boundary"),
+        ("bf16_cpu", "CUDA tensors"),
     ],
 )
 def test_kernel_wrapper_input_checks_raise_without_nvcc(case, match):
@@ -91,8 +95,52 @@ def test_kernel_wrapper_input_checks_raise_without_nvcc(case, match):
     elif case == "shape":
         w = torch.zeros(4, 48, 32)
     elif case == "bf16_d":
-        x, w = torch.zeros(4, 8, 48).bfloat16(), torch.zeros(4, 48, 32).bfloat16()
+        x, w = torch.zeros(4, 8, 44).bfloat16(), torch.zeros(4, 44, 32).bfloat16()
     elif case == "bf16_f":
         x, w = x.bfloat16(), torch.zeros(4, 64, 20).bfloat16()
+    elif case == "bf16_d0":
+        x, w = torch.zeros(4, 8, 0).bfloat16(), torch.zeros(4, 0, 32).bfloat16()
+    elif case == "bf16_x_base":
+        x, w = _off_16_bytes((4, 8, 64)), w.bfloat16()
+    elif case == "bf16_w_base":
+        x, w = x.bfloat16(), _off_16_bytes((4, 64, 32))
+    elif case == "bf16_cpu":
+        x, w = x.bfloat16(), w.bfloat16()
+    with pytest.raises(ValueError, match=match):
+        kernel.check_inputs(x, w)
     with pytest.raises(ValueError, match=match):
         kernel.grouped_matmul_cuda(x, w)
+
+
+def _off_16_bytes(shape):
+    """A contiguous bf16 tensor whose base lies 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shape)
+
+
+# (d, f) of deepseek-moe-16b's gate/up and down products
+PATH_DF = ((2048, 1408), (1408, 2048))
+
+
+def test_tile_plan_picks_only_warpgroups_from_c():
+    """C picks only the 64-row consumer warpgroups a block: 1 up to 64 rows,
+    2 above.  ``chip_smoke.py`` holds rows bitwise on both sides of this
+    switch (C = 64 and 65), so a move of it must move that check too."""
+    plans = {C: kernel.tile_plan(C) for C in range(1, 4097)}
+    assert {C for C, wgs in plans.items() if wgs == 1} == set(range(1, 65))
+    assert set(plans.values()) == {1, 2}
+
+
+@pytest.mark.parametrize("d,f", PATH_DF + ((1408, 1408), (2048, 2048)))
+@pytest.mark.parametrize("C", [1, 6, 8, 248, 1984])
+def test_check_inputs_takes_every_path_shape(C, d, f):
+    """Past every check of shape, type, contiguity and alignment, a CPU
+    tensor is refused for its device alone."""
+    x, w = torch.zeros(64, C, d, dtype=torch.bfloat16), torch.zeros(64, d, f, dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="must be CUDA tensors"):
+        kernel.check_inputs(x, w)
+    with pytest.raises(ValueError, match="must be CUDA tensors"):
+        kernel.grouped_matmul_cuda(x, w)
+
