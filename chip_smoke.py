@@ -47,14 +47,27 @@ Phases, one line or more each:
              RMSNorm kernel runs on this path too (every block norm and the
              final norm, again in each block's recompute).
 6. norm+ssd — the RMSNorm kernel (``src/repro_torch/csrc/rmsnorm.cu``) and
-             the SSD scan kernel (``src/repro_torch/csrc/ssd_scan.cu``)
-             against their plain PyTorch versions on the card: RMSNorm at
-             R = 16384 and R = 8 rows of d = 768, 1536 (mamba2-130m) and 576
-             (smollm-135m), bfloat16 and float32; SSD at the serving path's
-             shape (B=8, S=2048, nh=24, P=64, N=128, chunk 256, bfloat16), a
-             float32 shape and a small one; kernel and plain device times
-             (CUDA-graph replay) beside the bound, and ``F.rms_norm`` beside
-             RMSNorm (no PyTorch call computes the SSD scan).
+             the SSD scan kernels (``src/repro_torch/csrc/ssd_scan.cu``):
+             their ptxas reports (a spill or serialised wgmmas in an RMSNorm
+             instantiation this phase runs or in a bf16 SSD kernel of the
+             TMA path fail the run), then each against its plain
+             PyTorch version on the card: RMSNorm at R = 16384 and R = 8
+             rows of d = 768, 1536 (mamba2-130m), 576 (smollm-135m) and 2048
+             (deepseek-moe-16b), bfloat16 and float32, d = 771 (the scalar
+             instantiation) at R = 16384 and 8, and R = 8 rows wider than
+             eight warps' registers (bf16 d = 40000, f32 d = 100000: a row in
+             passes); SSD at the serving path's shape (B=8, S=2048, nh=24,
+             P=64, N=128, chunk 256, bfloat16), two ragged bf16 shapes (P, N
+             zero-padded through TMA; P, N and the chunk off every tile
+             width, staged by threads), a float32 shape and a small one,
+             and a bf16 shape with da > 0 on every second head, outside the
+             domain where SSD_TOL holds the bf16 y (its state and finiteness
+             checked, y's error recorded); kernel and plain device times (CUDA-graph replay)
+             beside the bound (SSD: at the tensor cores' rate and at
+             float32's), ``F.rms_norm`` beside RMSNorm (no PyTorch call
+             computes the SSD scan), and at the SSD path each of the call's
+             three kernels' device time from the profiler, which must see
+             each of them once a call.
 7. serve   — LM serving, this slice's main path:
              ``repro_torch.launch.serve.run_serving("mamba2-130m",
              reduced=False, batch=8, prompt_len=2048, max_new=64,
@@ -62,7 +75,9 @@ Phases, one line or more each:
              before and read just after (24 ``ssd_scan`` per prefill, 49
              ``rmsnorm`` per forward and per decode step); prefill and decode
              tokens/s and the device idle share of a profiled decode window
-             (16 steps after a discarded warm-up step);
+             (16 steps after a discarded warm-up step); the device time of
+             three profiled prefills, with the SSD scan's and RMSNorm's
+             share of it;
              prefill + decode against the full forward (B=2, S0=512, S=768);
              the kernel path against ``use_kernels="off"`` on one prompt of
              the path's length (B=1, S=2048), every bf16 check beside a
@@ -876,6 +891,12 @@ NORM_SHAPES = {
     "decode1536_bf16": (8, 1536, torch.bfloat16),
     "smollm576_bf16": (16384, 576, torch.bfloat16),
     "decode576_bf16": (8, 576, torch.bfloat16),
+    "prefill2048_bf16": (16384, 2048, torch.bfloat16),  # deepseek-moe-16b
+    "decode2048_bf16": (8, 2048, torch.bfloat16),
+    "scalar771_bf16": (16384, 771, torch.bfloat16),  # d % 8 != 0: the scalar instantiation
+    "decode771_bf16": (8, 771, torch.bfloat16),  # the scalar instantiation, 8 warps a row
+    "wide40000_bf16": (8, 40000, torch.bfloat16),  # wider than 8 warps' registers: 2 passes
+    "wide100000_f32": (8, 100000, torch.float32),  # 7 passes
     "prefill768_f32": (16384, 768, torch.float32),
     "prefill1536_f32": (16384, 1536, torch.float32),
 }
@@ -883,12 +904,18 @@ NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # the reference's kernel
 SSD_SHAPES = {
     # name: (B, S, nh, P, N, chunk, dtype)
     "path": (8, 2048, 24, 64, 128, 256, torch.bfloat16),
+    "ragged": (2, 192, 3, 40, 24, 64, torch.bfloat16),  # P, N zero-padded; TMA
+    "threads": (1, 192, 2, 33, 20, 96, torch.bfloat16),  # P, N % 8 != 0: no TMA; Q % 64 != 0
     "f32": (2, 512, 24, 64, 128, 256, torch.float32),
     "small_f32": (2, 256, 4, 32, 16, 64, torch.float32),
 }
 # against the plain version: float32 sums in another order (2e-3, the
-# reference's SSD tolerance); a bf16 y differs by about one rounding of the output
+# reference's SSD tolerance); a bf16 y differs by about one rounding of the
+# output and of the tensor-core operands (csrc/ssd_scan.cu)
 SSD_TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (2e-3, 2e-3)}  # (y, state)
+# da > 0 on every second head, a_cs rising by a few units a chunk: outside
+# the domain where SSD_TOL holds the bf16 kernels' y (csrc/ssd_scan.cu)
+SSD_RISING = (2, 512, 4, 64, 128, 256, torch.bfloat16)
 
 
 def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS_PER_S) -> dict:
@@ -901,9 +928,13 @@ def ssd_work(B, S, nh, P, N, chunk, dtype) -> dict:
     """FLOPs the function needs on this run's shape, and the bytes each input
     is read and each output written once.  The C·Bᵀ scores (the causal half
     of a Q x Q product) do not depend on the head: they count once per (b,
-    chunk), though the kernel recomputes them for every head.  The W·x
-    product (causal half), y_inter and the state update count per (b, h,
-    chunk)."""
+    chunk).  The W·x product (causal half), y_inter and the state update
+    count per (b, h, chunk).  ``bound_ms`` takes the products at the rate of
+    the unit the design runs them on: the bf16 tensor cores (989 TFLOP/s; the
+    state update's bf16 pair is two products there, counted once as the
+    function's work) for bfloat16, float32 outside the tensor cores (67) for
+    float32.  ``bound_f32_ms`` is every product at 67 TFLOP/s, the bound of
+    the CUDA-core design."""
     Q = min(chunk, S)
     pairs = Q * (Q + 1) // 2
     chunks = S // Q
@@ -912,7 +943,10 @@ def ssd_work(B, S, nh, P, N, chunk, dtype) -> dict:
     esz = torch.finfo(dtype).bits // 8
     BH = B * nh
     nbytes = 2 * BH * S * P * esz + 2 * BH * S * 4 + 2 * B * S * N * esz + BH * P * N * 4
-    return bound(flops, nbytes)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    unit = "bf16 tensor cores" if dtype == torch.bfloat16 else "float32 CUDA cores"
+    return dict(bound(flops, nbytes, peak), bound_unit=unit,
+                bound_f32_ms=bound(flops, nbytes)["bound_ms"])
 
 
 def ssd_inputs(B, S, nh, P, N, dtype, seed):
@@ -937,6 +971,18 @@ def phase_norm_ssd():
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     print("phase 6: RMSNorm and SSD scan kernels against their plain versions", flush=True)
+    rms.build()
+    ssd.build()
+    # strict on the instantiations this phase's shapes run
+    used = set()
+    for R, d, dtype in NORM_SHAPES.values():
+        plan = rms.norm_plan(R, d, dtype)
+        used.add(f"rmsnorm_kernelI{'13__nv_bfloat16' if dtype == torch.bfloat16 else 'f'}"
+                 f"Li{plan.vec}ELi{plan.vecs_per_lane}E")
+    check_ptxas(rms.BUILD_LOG, "rmsnorm_kernel", lambda fn: any(u in fn for u in used))
+    # strict on the bf16 SSD kernels the path runs (TMA: ILb1E); the float32
+    # kernel (the CUDA-core design) and the thread-staged chunk outputs are printed
+    check_ptxas(ssd.BUILD_LOG, "ssd_", lambda fn: "f32" not in fn and "ILb0E" not in fn)
     norm_rows = {}
     for seed, (shape, (R, d, dtype)) in enumerate(NORM_SHAPES.items()):
         g = torch.Generator(device="cuda").manual_seed(100 + seed)
@@ -960,8 +1006,11 @@ def phase_norm_ssd():
             return F.rms_norm(x, (d,), scale_x, 1e-6)
 
         esz = torch.finfo(dtype).bits // 8
+        plan = rms.norm_plan(R, d, dtype)
         row = dict(
             shape=shape, kernel="rmsnorm", R=R, d=d, dtype=str(dtype),
+            plan=dict(warps_per_row=plan.warps_per_row, rows_per_block=plan.rows_per_block,
+                      vecs_per_lane=plan.vecs_per_lane, vec=plan.vec),
             max_abs_err=max_err(got, want), ms=device_ms(kern, reps_for(kern, most=200)),
             plain_ms=device_ms(plain, reps_for(plain, most=200)),
             library_ms=device_ms(lib, reps_for(lib, most=200)),
@@ -991,16 +1040,55 @@ def phase_norm_ssd():
         def plain():
             return ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
 
+        plan = ssd.ssd_plan(B * nh, S, P, N, nh, chunk, dtype,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
         row = dict(
             shape=shape, kernel="ssd_scan", B=B, S=S, nh=nh, P=P, N=N, chunk=chunk,
-            dtype=str(dtype),
+            dtype=str(dtype), head_group=plan.head_group or None, tma=plan.tma,
             max_abs_err=max(max_err(y_k, y_p), max_err(st_k, st_p)),
+            max_abs_err_y=max_err(y_k, y_p), max_abs_err_state=max_err(st_k, st_p),
             max_abs_y=float(y_p.float().abs().max()), max_abs_state=float(st_p.abs().max()),
             ms=device_ms(kern, reps_for(kern)), plain_ms=device_ms(plain, reps_for(plain)),
             library_ms=None, **ssd_work(B, S, nh, P, N, chunk, dtype),
         )
+        if shape == "path":
+            # each kernel of one call, from the profiler: its device time and
+            # the kernels a call launches
+            stages = profile_window(kern, 5, match=SSD_STAGES)["matched"]
+            row["stage_ms"] = {k: v["ms_per_call"] for k, v in stages.items()}
+            row["kernels_per_call"] = round(sum(v["launches_per_call"] for v in stages.values()))
+            check(row["kernels_per_call"] == len(SSD_STAGES)
+                  and all(v["launches_per_call"] == 1 for v in stages.values()),
+                  f"ssd_scan path: the profiler saw {row['kernels_per_call']} kernels a call "
+                  f"({ {k: v['launches_per_call'] for k, v in stages.items()} }), not one "
+                  f"each of {SSD_STAGES}")
         ssd_rows[shape] = row
         print("  " + json.dumps(row), flush=True)
+
+    # Beyond that domain: L's factors and exp(a_cs) exceed 1, and W and the
+    # entering state, rounded to bf16, lose accuracy with them.  Gated: finite
+    # outputs and the state within SSD_TOL; y's error and its share of
+    # SSD_TOL's y limit are recorded.
+    B, S, nh, P, N, chunk, dtype = SSD_RISING
+    x, dt, A, B_, C_ = ssd_inputs(B, S, nh, P, N, dtype, 300)
+    A = torch.where(torch.arange(nh, device="cuda") % 2 == 1, -0.05 * A, A)
+    xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
+    dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
+    daf = dtf * A.repeat(B)[:, None]
+    y_k, st_k = ssd.ssd_scan_cuda(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+    y_p, st_p = ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+    tol_y, tol_s = SSD_TOL[dtype]
+    check(bool(torch.isfinite(y_k).all() and torch.isfinite(st_k).all()),
+          "ssd_scan rising: non-finite kernel output")
+    check(close(st_k, st_p, tol_s), f"ssd_scan rising: kernel state not within {tol_s} of "
+                                    f"plain (max abs err {max_err(st_k, st_p):.3g})")
+    err = (y_k.float() - y_p.float()).abs()
+    print("  " + json.dumps({"ssd_scan_rising": dict(
+        B=B, S=S, nh=nh, P=P, N=N, chunk=chunk, max_abs_err_y=float(err.max()),
+        y_tol_share=float((err / (tol_y + tol_y * y_p.float().abs())).max()),
+        max_abs_y=float(y_p.float().abs().max()), max_abs_err_state=max_err(st_k, st_p),
+        a_cs_rise_per_chunk=float(daf.reshape(B * nh, -1, min(chunk, S)).sum(-1).max()))}),
+        flush=True)
     return norm_rows, ssd_rows
 
 
@@ -1080,6 +1168,31 @@ def profiled_decode(cfg, params, n: int = 16, match=()) -> dict:
     prof["cache_len"] = cache_len
     check_window(prof, f"{cfg.name}: profiled decode")
     return prof
+
+
+SSD_STAGES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")  # one bf16 call's kernels
+
+
+def profiled_prefill(cfg, params, n: int = 3) -> dict:
+    """Device busy time of ``n`` prefills of the main path's prompts
+    (``profile_window``), with the SSD scan's three kernels and RMSNorm's
+    device time in it."""
+    from repro_torch.launch.serve import prefill_cache
+
+    g = torch.Generator().manual_seed(8)
+    prompts = torch.randint(3, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"]),
+                            generator=g, dtype=torch.int32).cuda()
+
+    def prefill():
+        prefill_cache(params, cfg, prompts, SERVE["prompt_len"] + 1)
+
+    prof = profile_window(prefill, n, match=(*SSD_STAGES, "rmsnorm_kernel"))
+    check_window(prof, f"{cfg.name}: profiled prefill")
+    ssd_ms = sum(prof["matched"][k]["ms_per_call"] for k in SSD_STAGES)
+    print(f"  {cfg.name} prefill: {prof['device_busy_ms_per_call']:.2f} ms device busy, "
+          f"ssd_scan {ssd_ms:.3f} ms, rmsnorm "
+          f"{prof['matched']['rmsnorm_kernel']['ms_per_call']:.3f} ms", flush=True)
+    return dict(prof, ssd_scan_ms=ssd_ms)
 
 
 # the decode's attention products beyond the served shape: (kv heads, query
@@ -1331,6 +1444,8 @@ def phase_serve() -> dict:
 
     prof = profiled_decode(cfg, params)
     print("  " + json.dumps({"profiled_decode": prof}), flush=True)
+    prefill_prof = profiled_prefill(cfg, params)
+    print("  " + json.dumps({"profiled_prefill": prefill_prof}), flush=True)
 
     def tokens_of(seed: int, shape=(2, 768)) -> torch.Tensor:
         g = torch.Generator().manual_seed(seed)
@@ -1385,8 +1500,8 @@ def phase_serve() -> dict:
     del params
 
     smollm = serve_main("smollm-135m", "smollm")
-    return dict(main, profiled_decode=prof, consistency=consistency, kernels_vs_off=kvo,
-                engine=eng, smollm=smollm)
+    return dict(main, profiled_decode=prof, profiled_prefill=prefill_prof,
+                consistency=consistency, kernels_vs_off=kvo, engine=eng, smollm=smollm)
 
 
 # ---------------------------------------------------------------------------
@@ -1970,8 +2085,14 @@ def main() -> int:
                         "MN-major (PR 17)",
         "flash_bwd_dkv": "wgmma, TMA tensor maps, mbarrier ring (PR 16); ex2.approx as dQ "
                          "(PR 17)",
-        "rmsnorm": "one warp per row, no shared memory (PR 13)",
-        "ssd_scan": "chunked scan on the CUDA cores in float32 (PR 13)",
+        "rmsnorm": "one HBM pass: the row in registers (16-byte vectors, at most 16 a lane), "
+                   "1-8 warps a row from norm_plan, blocks keeping scale in registers across "
+                   "their rows where it takes at most 64 a lane; rows too wide for 8 warps' "
+                   "registers in passes",
+        "ssd_scan": "bf16: 3 kernels a call (chunk states (x*s as bf16 hi+lo)^T.B on wgmma, "
+                    "float32 state passing, chunk outputs with C.B^T once per head group and "
+                    "W.x on wgmma from registers, TMA and an mbarrier ring); f32: one "
+                    "CUDA-core kernel",
         "moe_gmm": "wgmma m64n256k16 (n128 on a last narrow tile), 3-d TMA tensor maps, "
                    "mbarrier ring, a producer warpgroup (PR 17)",
         "quantize_int8": "one block per row, two passes over it (PR 15)",
@@ -1996,12 +2117,14 @@ def main() -> int:
         ("ssd_scan", ssd_rows, "path", "src/repro/kernels/ssd_scan/kernel.py:72"),
     ):
         row = rows_[main_shape]
+        extra = dict(kernels_per_call=row["kernels_per_call"]) if name == "ssd_scan" else {}
         record["kernels"].append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
             replaces=path, launches=serve["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in rows_.values()),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs[name],
+            **extra,
         ))
     row = gmm_rows["prefill"]
     record["kernels"].append(dict(

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, moe_gmm.cu): mbarriers, TMA loads through tensor maps
-// and bulk copies, wgmma descriptors and the wgmma wrappers, and the
-// tensor-map encoder, looked up at run time.
+// (flash_attention.cu, moe_gmm.cu, ssd_scan.cu): mbarriers, TMA loads
+// through tensor maps and bulk copies, wgmma descriptors and the wgmma
+// wrappers, and the tensor-map encoder, looked up at run time.
 //
 // A tile lies in shared memory as the tensor map writes it: rows of ROWB
 // bytes (128, 64 or 32) swizzled at that width, a wider tile as column

@@ -14,56 +14,664 @@
 // (BH, S, P) in bfloat16 or float32; dt, da (BH, S) float32; B, C (Bb, S, N)
 // of x's type, shared by the nheads heads of a batch row (row bh reads
 // bh / nheads, as the Pallas index map b // nheads); state (BH, P, N) float32.
-// P <= 64, N <= 128, Q <= 256 and Q divides S.  All arithmetic is float32, as
-// in the Pallas kernel (kernel.py:33-37); the products are plain float32
-// sums in another order than the reference's dots.
-//
-// The TPU kernel runs the chunk axis as a sequential grid dimension and keeps
-// the (P, N) state in VMEM scratch between grid steps.  Here blocks run in no
-// order, so ONE block per (b, h) loops over the chunks itself and keeps the
-// 64 x 128 float32 state (32 KB) in shared memory for the whole sequence.
+// P <= 64, N <= 128, Q <= 256 and Q divides S.
 //
 // Above the diagonal a_cs[q] - a_cs[k] is positive and exp overflows: L is a
 // select (q >= k ? exp(...) : 0), never a multiply by a 0/1 mask, which would
-// give inf * 0 = NaN; key tiles wholly above the diagonal are skipped, which
-// is exact (their weights are all 0).
+// give inf * 0 = NaN; key tiles wholly above every query row of a block are
+// skipped, which is exact (their weights are all 0).
 //
 // What bounds it.  At the serving path's prefill shape (B = 8, S = 2048,
-// nh = 24, P = 64, N = 128, Q = 256) one launch does, per (bh, chunk), the
-// causal half of the two Q x Q products (2 * Q(Q+1)/2 * (N + P) FLOP) plus
-// 4 * Q * P * N for y_inter and the state: 21.0 MFLOP, 32.3 GFLOP in all,
-// against 118 MB of traffic (x and y in bf16, dt, da, B, C, the state): about
-// 270 FLOP per byte, so float32 operations bound it (0.48 ms at the card's
-// 67 TFLOP/s outside the tensor cores, 35 us for the bytes).
+// nh = 24, P = 64, N = 128, Q = 256, bfloat16) the function needs, per
+// (b, chunk), the causal half of C B^T (2 * Q(Q+1)/2 * N FLOP, shared by the
+// heads) and per (bh, chunk) the causal half of the W x product plus
+// 4 * Q * P * N for y_inter and the state: 19.9 GFLOP in all against 118 MB of
+// inputs and outputs.  On the bf16 tensor cores that is 20 us of operations
+// and 35 us of bytes, so bytes bound it.  The three stages below move about
+// 250 MB more at the path: the chunk states written and read (101 MB), the
+// entering states written and read by both query-tile pairs (76 MB), and x
+// read again by the chunk outputs, 1.5 times (76 MB).
 //
-// Design.  256 threads per block, as a 16 x 16 grid; every product is cut
-// into 64 x 64 output tiles of which each thread owns 4 x 4 (the state
-// update: 4 x 8), accumulated in registers from operands staged in shared
-// memory as float32 (bfloat16 inputs are widened once on load).  The Q x Q
-// weight block of a 256-token chunk would be 256 KB of float32, more than a
-// block's 227 KB of shared memory, so query rows go in tiles of 64: per query
-// tile, the C tile (64 x 128) stays staged while the key tiles at or below
-// the diagonal stream through (B tile 64 x 128, x tile 64 x 64); their 64 x 64
-// weight tile goes through shared memory into the W x product.  Rows of
-// the staged tiles are padded to 129 (65) floats so that the column walks of
-// the products hit 16 distinct banks.  About 134 KB of shared memory: one
-// block per SM, 192 blocks at the path's shape.
+// Two designs:
 //
-// Not yet: the C B^T score tiles are the same for the 24 heads of a batch row
-// and are recomputed per head here, as the TPU kernel does; the products run
-// on the CUDA cores in float32 (no tensor cores, which would give TF32); the
-// tile loads are not pipelined.
+//   bfloat16: three kernels a call, chunk-parallel, every product on wgmma
+//   (bf16 in, float32 accumulate; hopper.cuh), after the chunk_state /
+//   state_passing / chunk_scan split of Mamba-2's own GPU kernels.
+//   1. ssd_chunk_state_kernel, one block (one warpgroup) per (bh, chunk),
+//      two blocks an SM: x and B arrive by TMA while the threads take the
+//      chunk's a_cs (written out for stages 2 and 3) and s = exp(a_last -
+//      a_cs) * dt; then S_c = x^T (B * s) = (x * s)^T B, with x~ = x * s
+//      formed in registers as wgmma's A fragments, a bf16 pair hi + lo
+//      (hi = bf16(x~), lo = bf16(x~ - hi)): two wgmma.m64n128k16 chains on
+//      the same B tile, read MN-major as it lies.  Scaling x rather than B
+//      (the reference's order) keeps the split out of shared memory: x is
+//      half of B's bytes, and the block needs 99 KB instead of 163 KB.  S_c
+//      (64 x 128 float32, zero-padded) goes to a temporary (BH, chunks, 64,
+//      128).
+//   2. ssd_state_pass_kernel, one thread per four state elements of a row
+//      bh, walking the chunks: H_0 = 0, H_{c+1} = H_c * exp(a_last_c) + S_c
+//      in float32; it writes the state entering each chunk, rounded to
+//      bf16, to a second temporary (BH, chunks, 64, 128), and the last H as
+//      the final state.
+//   3. ssd_chunk_out_kernel, one block per (b, chunk, pair of 64-row query
+//      tiles 2 z and 2 z + 1, group of heads): two consumer warpgroups, one
+//      a query tile, and a producer warpgroup (setmaxnreg 24 / 240).  One
+//      producer thread loads by TMA both C tiles and the B tiles at or below
+//      the pair's diagonal once, then keeps a 2-slot mbarrier ring of each
+//      head's x tiles and entering state H, which both consumers read.  Each
+//      consumer computes G = C B^T once for the whole group (wgmma
+//      m64n64k16 per 64-key tile, K-major both) and keeps it in registers;
+//      per head, y = (C H^T) (wgmma from shared memory) scaled by
+//      exp(a_cs[q]) row by row, then y += W x with W = G o L o dt packed to
+//      bf16 in registers as wgmma's A (the accumulator's layout is the A
+//      fragment's) and x read MN-major; y is stored in bf16.  Both consumers
+//      run the pair's key tiles, so the first's last tile is wholly above
+//      its diagonal (zero weights): the same instructions for both, no
+//      branch around a wgmma.  Below the diagonal a key tile's weights need
+//      no exponential an element: L = exp(a_q - a_k1) exp(a_k1 - a_k) with
+//      k1 the tile's last key, one exponential a row and one a key, taken
+//      when the block starts (the per-element exponential, whose latency the
+//      consumers could not hide, led the kernel's time).  Where da <= 0 (the
+//      model's dt > 0 and A < 0) a_cs does not rise and each factor is at
+//      most 1.  With da > 0 a factor can exceed 1; it overflows only where
+//      a_cs rises by more than 88 within the chunk, and then the plain
+//      version's own weight exp(a_q - a_k1) or exp(a_k1 - a_k) overflows
+//      too, so its y is not finite in that chunk either.
+//      The caller's plan (kernel.py ssd_plan) gives every kernel's grid, and
+//      the launch refuses it unless its threads and shared memory are the
+//      kernel's.  It takes the largest head group, at most 8, that still
+//      gives every SM of the card a block (8 of 24 heads at the path: 384
+//      blocks; groups 2, 4, 6 and 8 timed within 5% of each other there),
+//      the pairs with the most keys first.
+//   Where P or N is not a multiple of 8 or a pointer is not 16-byte aligned,
+//   TMA cannot address the tensors: the threads stage the same tiles element
+//   by element (zeros past P, N and the chunk); the products are the same.
+//   Temporaries of one call: the chunk states (float32) and the entering
+//   states (bf16), BH * chunks * 64 * 128 * 6 bytes, and a_cs, BH * S * 4:
+//   50.3 + 25.2 + 1.6 MB at the path.
+//
+//   float32 (ssd_scan_f32_kernel): the CUDA cores, the first port's design, one
+//   block per (b, h) walking the chunks with the 64 x 128 float32 state in
+//   shared memory; products in float32 from 4 x 4 register tiles.  Its
+//   tolerance (2e-3 against the plain version) admits no bf16 or TF32
+//   product.
+//
+// Rounding points of the bfloat16 design.  Products of bf16 operands are
+// exact in the tensor cores and sum in float32: C B^T (G), C H^T, hi^T B,
+// lo^T B and W x.  Rounded operands: x~ = x * s (one float32 product) to the
+// pair hi + lo (about 16 bits: the scaled operand wholly in bf16 would use
+// most of the state's 2e-3 tolerance); the state entering a chunk, for
+// y_inter only, to bf16 (the carried state stays float32); W, to bf16: on
+// the diagonal tile (G * L) * dt with L from __expf (ex2.approx of a
+// multiply), below it (G * exp(a_q - a_k1)) * (exp(a_k1 - a_k) * dt), each
+// product rounded in float32.  exp(a_last - a_cs), exp(a_last) and exp(a_cs[q]) use
+// expf; y_inter is scaled in float32 before W x is added, and y is rounded
+// once to bf16.  The cumsum runs in another order than the reference's,
+// once, and every stage reads it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// bfloat16: chunk states, state passing, chunk outputs
+// ---------------------------------------------------------------------------
+
+constexpr int QMAX = 256;              // longest chunk
+constexpr int ROWB = 128;              // bytes of a swizzled tile row: 64 bf16
+constexpr int TILE = 64 * ROWB;        // 64 rows of one 64-column chunk: 8 KB
+constexpr int PP = 64, NP = 128;       // a chunk state's padded (P, N)
+constexpr int WG = 128;                // threads of a warpgroup
+constexpr int NST = 2;                 // ring slots (heads in flight) of stage 3
+constexpr int MAX_GROUP = 8;           // heads of one stage-3 block
+
+// stage 1: x (QMAX keys x 64 P) and B (QMAX keys, two 64-column chunks) as
+// TMA writes them, a_cs and the keys' scale, four warp sums, an mbarrier
+constexpr int S1_X = QMAX * ROWB;
+constexpr int S1_B = 2 * QMAX * ROWB;
+constexpr int S1_SMEM = 1024 + S1_X + S1_B + 2 * QMAX * 4 + 16 + 8;
+// stage 3: C (two query tiles of 64, two chunks each), B (QMAX keys, two
+// chunks), NST slots of x (QMAX keys x 64 P) and H (64 P, two chunks), a_cs,
+// dt and exp(a_k1 - a_cs) * dt of the group's heads, five mbarriers
+constexpr int S3_C = 2 * 2 * TILE;
+constexpr int S3_B = 2 * QMAX * ROWB;
+constexpr int S3_X = QMAX * ROWB;
+constexpr int S3_SLOT = S3_X + 2 * TILE;
+constexpr int S3_SMEM = 1024 + S3_C + S3_B + NST * S3_SLOT + 3 * MAX_GROUP * QMAX * 4 + 64;
+constexpr int S3_THREADS = 3 * WG;  // two consumer warpgroups and a producer
+constexpr int S2_THREADS = 256;     // state passing
+static_assert(S1_SMEM <= 232448 / 2 && S3_SMEM <= 232448, "shared memory of a block");
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
+}
+
+// byte offset of the bf16 at row r, column col (< 64) of a tile of 128-byte
+// rows at a 1024-byte boundary, swizzled at 128 B as TMA writes it
+__device__ __forceinline__ uint32_t swz(int r, int col) {
+  return r * ROWB + ((((col >> 3) ^ r) & 7) << 4) + 2 * (col & 7);
+}
+
+// shared-memory writes of the threads, visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the first `threads` threads of the block (named barrier 1)
+__device__ __forceinline__ void sync_threads(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// rows [0, rows) x columns [0, 64 nch) of a row-major bf16 matrix (leading
+// dimension ld) into nch 64-column chunks of 128-byte swizzled rows, chunk j
+// at dst + j * chunk_bytes, zeros at rows >= nr or columns >= nc: threads
+// [0, threads), an element each, where TMA cannot address the tensor
+__device__ void stage_tile(unsigned char* dst, int chunk_bytes, int rows, int nch,
+                           const bf16* __restrict__ src, int ld, int nr, int nc, int threads) {
+  const int cols = 64 * nch;
+  for (int i = threadIdx.x; i < rows * cols; i += threads) {
+    const int r = i / cols, col = i % cols;
+    bf16 v = __float2bfloat16_rn(0.f);
+    if (r < nr && col < nc) v = src[(size_t)r * ld + col];
+    *reinterpret_cast<bf16*>(dst + (col >> 6) * chunk_bytes + swz(r, col & 63)) = v;
+  }
+}
+
+// the inclusive cumsum of a chunk's Q <= 256 values of da (zeros past Q), two
+// a thread, by the 128 threads of the block
+__device__ void chunk_cumsum(const float* __restrict__ da, int Q, float* acs, float* ws) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const float d0 = 2 * t < Q ? da[2 * t] : 0.f;
+  const float d1 = 2 * t + 1 < Q ? da[2 * t + 1] : 0.f;
+  float v = d0 + d1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float n = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += n;
+  }
+  if (lane == 31) ws[warp] = v;
+  float before = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) before = 0.f;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) before += ws[w];
+  const float a0 = before + d0;
+  acs[2 * t] = a0;
+  acs[2 * t + 1] = a0 + d1;
+}
+
+// v = hi + lo to about 16 bits, for two neighbouring values of a fragment
+__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(v0, __low2float(h)), __fsub_rn(v1, __high2float(h)));
+}
+
+// Stage 1.  Block bh * chunks + c: a_cs of the chunk, and its state
+// S_c = x^T (B * s) = (x * s)^T B with s = exp(a_last - a_cs) * dt.  TMA: x
+// and B arrive by TMA while the threads take the cumsum; else the threads
+// stage them element by element.  x~ = x * s is formed in registers as
+// wgmma's A fragments, a bf16 pair hi + lo; B is read MN-major as it lies.
+template <bool TMA>
+__global__ void __launch_bounds__(WG, 2)
+ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                       const bf16* __restrict__ x, const float* __restrict__ dt,
+                       const float* __restrict__ da, const bf16* __restrict__ Bm,
+                       float* __restrict__ acs_out, float* __restrict__ states, int S, int P,
+                       int N, int nheads, int Q) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sx = align1024(smem_raw);
+  unsigned char* sb = sx + S1_X;
+  float* sacs = reinterpret_cast<float*>(sb + S1_B);
+  float* sscale = sacs + QMAX;
+  float* ws = sscale + QMAX;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ws + 4);
+
+  const int tid = threadIdx.x;
+  const int chunks = S / Q;
+  const int bh = blockIdx.x / chunks, c = blockIdx.x % chunks;
+  const size_t row0 = (size_t)bh * S + (size_t)c * Q;  // the chunk's first row of (BH, S)
+  const int KT = (Q + 63) / 64;  // key tiles of 64
+  if (TMA && tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, 3 * KT * TILE);
+    for (int kt = 0; kt < KT; ++kt) {
+      tma_load_3d(sx + kt * TILE, &tx, bar, 0, c * Q + 64 * kt, bh);
+      for (int j = 0; j < 2; ++j)
+        tma_load_3d(sb + j * QMAX * ROWB + kt * TILE, &tb, bar, 64 * j, c * Q + 64 * kt,
+                    bh / nheads);
+    }
+  }
+
+  chunk_cumsum(da + row0, Q, sacs, ws);
+  __syncthreads();
+  const float a_last = sacs[Q - 1];
+  for (int k = tid; k < QMAX; k += WG) {
+    float s = 0.f;  // zero past the chunk: those rows of the tiles are the next chunk's
+    if (k < Q) {
+      s = __fmul_rn(expf(a_last - sacs[k]), dt[row0 + k]);
+      acs_out[row0 + k] = sacs[k];
+    }
+    sscale[k] = s;
+  }
+  if constexpr (TMA) {
+    __syncthreads();
+    mbar_wait(bar, 0);
+  } else {
+    stage_tile(sx, S1_X, 64 * KT, 1, x + row0 * P, P, Q, P, WG);
+    stage_tile(sb, QMAX * ROWB, 64 * KT, 2, Bm + ((size_t)(bh / nheads) * S + (size_t)c * Q) * N,
+               N, Q, N, WG);
+    fence_async_shared();
+    __syncthreads();
+  }
+
+  // S_c (64 P x 128 N): rows p0 (+8) of x~^T, keys 16 kk + 2 tig (+1, +8, +9)
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int p0 = warp * 16 + g;
+  float acc[64];
+  zero(acc);
+  const uint32_t b_addr = smem_u32(sb);
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 64 * kt + 16 * kk + 2 * tig;
+      const float2 s01 = *reinterpret_cast<const float2*>(sscale + k);
+      const float2 s89 = *reinterpret_cast<const float2*>(sscale + k + 8);
+      const float sk[4] = {s01.x, s01.y, s89.x, s89.y};
+      const int keys[4] = {k, k + 1, k + 8, k + 9};
+      float v[2][4];  // rows p0, p0 + 8
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          v[h][e] = __fmul_rn(
+              __bfloat162float(*reinterpret_cast<const bf16*>(sx + swz(keys[e], p0 + 8 * h))),
+              sk[e]);
+      split_pair(v[0][0], v[0][1], hi[kk][0], lo[kk][0]);
+      split_pair(v[1][0], v[1][1], hi[kk][1], lo[kk][1]);
+      split_pair(v[0][2], v[0][3], hi[kk][2], lo[kk][2]);
+      split_pair(v[1][2], v[1][3], hi[kk][3], lo[kk][3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bd = desc_mnmajor<ROWB, QMAX>(b_addr, 4 * kt + kk);
+      wgmma_rs<1>(acc, hi[kk], bd, 1);
+      wgmma_rs<1>(acc, lo[kk], bd, 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+  }
+  hold(acc);
+
+  float* out = states + (size_t)blockIdx.x * (PP * NP);
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j) {
+    const int col = 8 * j + 2 * tig;
+    *reinterpret_cast<float2*>(out + p0 * NP + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + (p0 + 8) * NP + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Stage 2.  Thread (bh, p, 4 n): the state entering each chunk, in bf16, and
+// the final state.
+__global__ void __launch_bounds__(S2_THREADS)
+ssd_state_pass_kernel(const float* __restrict__ states, const float* __restrict__ acs,
+                      bf16* __restrict__ entering, float* __restrict__ final_state, int BH,
+                      int S, int P, int N, int Q) {
+  constexpr int V = PP * NP / 4;  // float4s of a state
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)BH * V) return;
+  const int chunks = S / Q;
+  const int bh = (int)(i / V), e = (int)(i % V);
+  const float4* s = reinterpret_cast<const float4*>(states) + (size_t)bh * chunks * V + e;
+  uint2* o = reinterpret_cast<uint2*>(entering) + (size_t)bh * chunks * V + e;
+  const float* a_last = acs + (size_t)bh * S + Q - 1;
+  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int c = 0; c < chunks; ++c) {
+    const float4 sc = s[(size_t)c * V];
+    o[(size_t)c * V] = make_uint2(pack_bf16(h.x, h.y), pack_bf16(h.z, h.w));
+    const float d = expf(a_last[(size_t)c * Q]);
+    h.x = __fadd_rn(__fmul_rn(h.x, d), sc.x);
+    h.y = __fadd_rn(__fmul_rn(h.y, d), sc.y);
+    h.z = __fadd_rn(__fmul_rn(h.z, d), sc.z);
+    h.w = __fadd_rn(__fmul_rn(h.w, d), sc.w);
+  }
+  const int p = e / (NP / 4), n = 4 * (e % (NP / 4));
+  if (p >= P) return;
+  float* fs = final_state + ((size_t)bh * P + p) * N;
+  const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (n + k < N) fs[n + k] = hv[k];
+}
+
+struct OutArgs {
+  const bf16* x;
+  const float* dt;
+  const float* acs;
+  const bf16* Bm;
+  const bf16* Cm;
+  const bf16* entering;
+  bf16* y;
+  int S, P, N, nheads, Q, group;
+};
+
+// the weight of key k for query q, G o L o dt; L is a select, never a
+// multiply by a mask (exp overflows above the diagonal)
+__device__ __forceinline__ float weight(float gv, int q, int k, float aq, float ak, float dk) {
+  return q >= k ? __fmul_rn(__fmul_rn(gv, __expf(aq - ak)), dk) : 0.f;
+}
+
+// y's elements (q, p) and (q, p + 1) of a chunk, those inside it
+__device__ __forceinline__ void store_pair(bf16* yc, int q, int p, float v0, float v1, int Q,
+                                           int P) {
+  if (q >= Q) return;
+  bf16* row = yc + (size_t)q * P;
+  if (p + 1 < P && P % 2 == 0) {
+    *reinterpret_cast<uint32_t*>(row + p) = pack_bf16(v0, v1);
+  } else {
+    if (p < P) row[p] = __float2bfloat16_rn(v0);
+    if (p + 1 < P) row[p + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// Stage 3 for the query tiles 2 z and 2 z + 1 (one a consumer warpgroup) and
+// the NKT = min(2 z + 2, ceil(Q / 64)) key tiles of 64 at or below the
+// second's diagonal (the first warpgroup's last tile is wholly above its
+// diagonal when NKT = 2 z + 2: its weights are zeros).
+template <int NKT, bool TMA>
+__device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorMap* tb,
+                                          const CUtensorMap* tc, const CUtensorMap* th,
+                                          const OutArgs& a, int z) {
+  constexpr int KEYS = 64 * NKT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sc = align1024(smem_raw);  // warpgroup w's C tile at sc + 2 w TILE
+  unsigned char* sb = sc + S3_C;
+  unsigned char* ring = sb + S3_B;
+  float* sacs = reinterpret_cast<float*>(ring + NST * S3_SLOT);  // [MAX_GROUP][QMAX]
+  float* sdt = sacs + MAX_GROUP * QMAX;
+  float* sck = sdt + MAX_GROUP * QMAX;  // exp(a_k1 - a_cs) * dt, k1 the key tile's last key
+  uint64_t* cb = reinterpret_cast<uint64_t*>(sck + MAX_GROUP * QMAX);
+  uint64_t* full = cb + 1;
+  uint64_t* empty = full + NST;
+
+  const int tid = threadIdx.x, wg = tid / WG;
+  const int chunks = a.S / a.Q;
+  const int b = blockIdx.x / chunks, c = blockIdx.x % chunks;
+  const int h0 = blockIdx.y * a.group;
+  const int ng = min(a.group, a.nheads - h0);
+  const int bh0 = b * a.nheads + h0;
+  const int crow = c * a.Q;  // the chunk's first row of S
+
+  if (TMA && tid == 0) {
+    mbar_init(cb, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (TMA) {
+      if (tid == 2 * WG) {
+        mbar_expect_tx(cb, (4 + 2 * NKT) * TILE);
+        for (int w = 0; w < 2; ++w)
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(sc + (2 * w + j) * TILE, tc, cb, 64 * j, crow + 64 * (2 * z + w), b);
+        for (int kt = 0; kt < NKT; ++kt)
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(sb + j * QMAX * ROWB + kt * TILE, tb, cb, 64 * j, crow + 64 * kt, b);
+        for (int i = 0; i < ng; ++i) {
+          const int s = i % NST;
+          if (i >= NST) mbar_wait(&empty[s], ((i / NST) & 1) ^ 1);
+          unsigned char* slot = ring + s * S3_SLOT;
+          mbar_expect_tx(&full[s], (NKT + 2) * TILE);
+          for (int kt = 0; kt < NKT; ++kt)
+            tma_load_3d(slot + kt * TILE, tx, &full[s], 0, crow + 64 * kt, bh0 + i);
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(slot + S3_X + j * TILE, th, &full[s], 64 * j, 0,
+                        (bh0 + i) * chunks + c);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+
+  // a_cs, dt and exp(a_k1 - a_cs) * dt of the group's heads at the chunk's
+  // first KEYS keys (zeros past Q)
+  for (int i = tid; i < ng * KEYS; i += 2 * WG) {
+    const int h = i / KEYS, k = i % KEYS;
+    float av = 0.f, dv = 0.f, cv = 0.f;
+    if (k < a.Q) {
+      const size_t at = (size_t)(bh0 + h) * a.S + crow;
+      av = a.acs[at + k];
+      dv = a.dt[at + k];
+      cv = __fmul_rn(expf(a.acs[at + min(k | 63, a.Q - 1)] - av), dv);
+    }
+    sacs[h * QMAX + k] = av;
+    sdt[h * QMAX + k] = dv;
+    sck[h * QMAX + k] = cv;
+  }
+  if constexpr (!TMA) {
+    for (int w = 0; w < 2; ++w)
+      stage_tile(sc + 2 * w * TILE, TILE, 64, 2,
+                 a.Cm + ((size_t)b * a.S + crow + 64 * (2 * z + w)) * a.N, a.N,
+                 a.Q - 64 * (2 * z + w), a.N, 2 * WG);
+    stage_tile(sb, QMAX * ROWB, KEYS, 2, a.Bm + ((size_t)b * a.S + crow) * a.N, a.N, a.Q, a.N,
+               2 * WG);
+    fence_async_shared();
+  }
+  sync_threads(2 * WG);
+  if constexpr (TMA) mbar_wait(cb, 0);
+
+  const int warp = (tid / 32) % 4, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const uint32_t c_addr = smem_u32(sc) + 2 * wg * TILE, b_addr = smem_u32(sb);
+
+  // G = C B^T for the group's heads: queries q0 (+8), keys 64 kt + 8 j + 2 tig (+1)
+  float G[NKT][32];
+#pragma unroll
+  for (int kt = 0; kt < NKT; ++kt) zero(G[kt]);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NP / 16; ++kk)
+#pragma unroll
+    for (int kt = 0; kt < NKT; ++kt)
+      wgmma_ss<0>(G[kt], desc_kmajor<ROWB, 64>(c_addr, 0, kk),
+                  desc_kmajor<ROWB, QMAX>(b_addr, 64 * kt, kk), 1);
+  wg_commit();
+  wg_wait<0>();
+#pragma unroll
+  for (int kt = 0; kt < NKT; ++kt) hold(G[kt]);
+
+  const int qt = 2 * z + wg;  // this warpgroup's query tile
+  const int q0 = 64 * qt + warp * 16 + g, q1 = q0 + 8;  // this thread's rows
+  for (int i = 0; i < ng; ++i) {
+    const int s = TMA ? i % NST : 0;
+    unsigned char* slot = ring + s * S3_SLOT;
+    if constexpr (TMA) {
+      mbar_wait(&full[s], (i / NST) & 1);
+    } else {
+      sync_threads(2 * WG);  // the previous head's readers of the slot are done
+      stage_tile(slot, S3_X, KEYS, 1, a.x + ((size_t)(bh0 + i) * a.S + crow) * a.P, a.P, a.Q,
+                 a.P, 2 * WG);
+      stage_tile(slot + S3_X, TILE, 64, 2,
+                 a.entering + ((size_t)(bh0 + i) * chunks + c) * (PP * NP), NP, PP, NP, 2 * WG);
+      fence_async_shared();
+      sync_threads(2 * WG);
+    }
+    const uint32_t x_addr = smem_u32(slot), h_addr = x_addr + S3_X;
+    const float* acs = sacs + i * QMAX;
+    const float* dts = sdt + i * QMAX;
+    const float* cks = sck + i * QMAX;
+
+    // y = (C H^T) * exp(a_cs[q])
+    float y[32];
+    zero(y);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk)
+      wgmma_ss<0>(y, desc_kmajor<ROWB, 64>(c_addr, 0, kk), desc_kmajor<ROWB, 64>(h_addr, 0, kk),
+                  1);
+    wg_commit();
+    wg_wait<0>();
+    hold(y);
+    const float a0 = acs[q0], a1 = acs[q1];
+    const float e0 = expf(a0), e1 = expf(a1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      y[4 * j] = __fmul_rn(y[4 * j], e0);
+      y[4 * j + 1] = __fmul_rn(y[4 * j + 1], e0);
+      y[4 * j + 2] = __fmul_rn(y[4 * j + 2], e1);
+      y[4 * j + 3] = __fmul_rn(y[4 * j + 3], e1);
+    }
+
+    // y += W x, key tile by key tile, W packed to bf16 as wgmma's A.  Below
+    // the diagonal (kt < qt) every q > k1 >= k, k1 = 64 kt + 63, and L =
+    // exp(a_q - a_k1) exp(a_k1 - a_k), each factor at most 1 where da <= 0
+    // (the header note says what da > 0 gives): two exponentials a row and
+    // one a key (sck) for the tile, none an element.
+    // On the diagonal tile (and the first warpgroup's tile above it, all
+    // zeros) L is the select of one exponential an element.
+#pragma unroll
+    for (int kt = 0; kt < NKT; ++kt) {
+      uint32_t w[4][4];
+      if (kt < qt) {
+        const float ak1 = acs[64 * kt + 63];
+        const float r0 = expf(a0 - ak1), r1 = expf(a1 - ak1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int k = 64 * kt + 16 * kk + 2 * tig;  // keys k, k + 1, k + 8, k + 9
+          const float2 c = *reinterpret_cast<const float2*>(cks + k);
+          const float2 c8 = *reinterpret_cast<const float2*>(cks + k + 8);
+          const float* gv = &G[kt][8 * kk];
+          w[kk][0] = pack_bf16(__fmul_rn(__fmul_rn(gv[0], r0), c.x),
+                               __fmul_rn(__fmul_rn(gv[1], r0), c.y));
+          w[kk][1] = pack_bf16(__fmul_rn(__fmul_rn(gv[2], r1), c.x),
+                               __fmul_rn(__fmul_rn(gv[3], r1), c.y));
+          w[kk][2] = pack_bf16(__fmul_rn(__fmul_rn(gv[4], r0), c8.x),
+                               __fmul_rn(__fmul_rn(gv[5], r0), c8.y));
+          w[kk][3] = pack_bf16(__fmul_rn(__fmul_rn(gv[6], r1), c8.x),
+                               __fmul_rn(__fmul_rn(gv[7], r1), c8.y));
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int k = 64 * kt + 16 * kk + 2 * tig;
+          const float2 ak = *reinterpret_cast<const float2*>(acs + k);
+          const float2 ak8 = *reinterpret_cast<const float2*>(acs + k + 8);
+          const float2 dk = *reinterpret_cast<const float2*>(dts + k);
+          const float2 dk8 = *reinterpret_cast<const float2*>(dts + k + 8);
+          const float* gv = &G[kt][8 * kk];
+          w[kk][0] = pack_bf16(weight(gv[0], q0, k, a0, ak.x, dk.x),
+                               weight(gv[1], q0, k + 1, a0, ak.y, dk.y));
+          w[kk][1] = pack_bf16(weight(gv[2], q1, k, a1, ak.x, dk.x),
+                               weight(gv[3], q1, k + 1, a1, ak.y, dk.y));
+          w[kk][2] = pack_bf16(weight(gv[4], q0, k + 8, a0, ak8.x, dk8.x),
+                               weight(gv[5], q0, k + 9, a0, ak8.y, dk8.y));
+          w[kk][3] = pack_bf16(weight(gv[6], q1, k + 8, a1, ak8.x, dk8.x),
+                               weight(gv[7], q1, k + 9, a1, ak8.y, dk8.y));
+        }
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(y, w[kk], desc_mnmajor<ROWB, 64>(x_addr + kt * TILE, kk), 1);
+      wg_commit();
+      wg_wait<0>();
+    }
+    hold(y);
+    if constexpr (TMA) {  // the slot is free for the producer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    bf16* yc = a.y + ((size_t)(bh0 + i) * a.S + crow) * a.P;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = 8 * j + 2 * tig;
+      store_pair(yc, q0, p, y[4 * j], y[4 * j + 1], a.Q, a.P);
+      store_pair(yc, q1, p, y[4 * j + 2], y[4 * j + 3], a.Q, a.P);
+    }
+  }
+}
+
+// Stage 3.  Block (b * chunks + c, head group, pair of query tiles from the
+// last): the chunk's outputs y for 128 query rows and a group of heads.
+template <bool TMA>
+__global__ void __launch_bounds__(S3_THREADS, 1)
+ssd_chunk_out_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap th,
+                     const OutArgs a) {
+  // the pairs with the most keys go first
+  const int z = gridDim.z - 1 - blockIdx.z;
+  switch (min(2 * z + 2, (a.Q + 63) / 64)) {
+    case 1: chunk_out<1, TMA>(&tx, &tb, &tc, &th, a, z); break;
+    case 2: chunk_out<2, TMA>(&tx, &tb, &tc, &th, a, z); break;
+    case 3: chunk_out<3, TMA>(&tx, &tb, &tc, &th, a, z); break;
+    default: chunk_out<4, TMA>(&tx, &tb, &tc, &th, a, z); break;
+  }
+}
+
+// the caller's plan: grid x, y, z, threads and dynamic shared memory of each
+// kernel; false unless the threads and shared memory are the kernel's own
+bool plan_grids(const int* plan, int n, const int (*own)[2], dim3* grids) {
+  for (int i = 0; i < n; ++i) {
+    const int* k = plan + 5 * i;
+    if (k[0] < 1 || k[1] < 1 || k[2] < 1 || k[3] != own[i][0] || k[4] != own[i][1])
+      return false;
+    grids[i] = dim3(k[0], k[1], k[2]);
+  }
+  return true;
+}
+
+template <bool TMA>
+int launch_bf16(const void* x, const void* dt, const void* da, const void* B, const void* C,
+                void* y, void* state, void* acs, void* states, void* entering, int BH, int S,
+                int P, int N, int nheads, int Q, int group, const dim3* grids, cudaStream_t st) {
+  const int chunks = S / Q, Bb = BH / nheads;
+  CUtensorMap tx{}, tb{}, tc{}, th{};
+  if (TMA) {
+    int err = tensor_map_3d(&tx, x, P, S, BH, 64, 64);
+    if (err == 0) err = tensor_map_3d(&tb, B, N, S, Bb, 64, 64);
+    if (err == 0) err = tensor_map_3d(&tc, C, N, S, Bb, 64, 64);
+    if (err == 0) err = tensor_map_3d(&th, entering, NP, PP, (uint64_t)BH * chunks, 64, 64);
+    if (err != 0) return err;
+  }
+  const bf16* xb = static_cast<const bf16*>(x);
+  ssd_chunk_state_kernel<TMA><<<grids[0], WG, S1_SMEM, st>>>(
+      tx, tb, xb, static_cast<const float*>(dt), static_cast<const float*>(da),
+      static_cast<const bf16*>(B), static_cast<float*>(acs), static_cast<float*>(states), S, P,
+      N, nheads, Q);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ssd_state_pass_kernel<<<grids[1], S2_THREADS, 0, st>>>(
+      static_cast<const float*>(states), static_cast<const float*>(acs),
+      static_cast<bf16*>(entering), static_cast<float*>(state), BH, S, P, N, Q);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const OutArgs args{xb, static_cast<const float*>(dt), static_cast<const float*>(acs),
+                     static_cast<const bf16*>(B), static_cast<const bf16*>(C),
+                     static_cast<const bf16*>(entering), static_cast<bf16*>(y),
+                     S, P, N, nheads, Q, group};
+  ssd_chunk_out_kernel<TMA><<<grids[2], S3_THREADS, S3_SMEM, st>>>(tx, tb, tc, th, args);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
 constexpr int PT = 64;      // max head dim P
 constexpr int NT = 128;     // max state dim N
-constexpr int QMAX = 256;   // max chunk
 constexpr int TQ = 64;      // query rows per tile
 constexpr int TK = 64;      // key rows per tile
 constexpr int NS = NT + 1;  // padded row strides (floats)
@@ -78,39 +686,39 @@ constexpr int SMEM_FLOATS = TQ * NS      // sC
                           + THREADS / 32;  // warp sums
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // rows [k0, k0 + nk) of a (*, ld) matrix into a (rows, stride) float tile,
 // columns < ncols; the rest of the tile is zero.  `scale`, when given, is a
-// per-row factor (indexed by the tile row) applied after widening.
-template <typename T>
+// per-row factor (indexed by the tile row) applied after loading.
 __device__ __forceinline__ void stage(float* __restrict__ dst, int rows, int cols, int stride,
-                                      const T* __restrict__ src, int nk, int ncols, int ld,
+                                      const float* __restrict__ src, int nk, int ncols, int ld,
                                       const float* __restrict__ scale) {
   for (int i = threadIdx.x; i < rows * cols; i += THREADS) {
     const int r = i / cols, c = i % cols;
     float v = 0.f;
     if (r < nk && c < ncols) {
-      v = to_f(src[(size_t)r * ld + c]);
+      v = src[(size_t)r * ld + c];
       if (scale) v = __fmul_rn(v, scale[r]);
     }
     dst[r * stride + c] = v;
   }
 }
 
-template <typename T>
+// Design.  256 threads per block, as a 16 x 16 grid; every product is cut
+// into 64 x 64 output tiles of which each thread owns 4 x 4 (the state
+// update: 4 x 8), accumulated in registers from operands staged in shared
+// memory.  The Q x Q weight block of a 256-token chunk would be 256 KB of
+// float32, more than a block's 227 KB of shared memory, so query rows go in
+// tiles of 64: per query tile, the C tile (64 x 128) stays staged while the
+// key tiles at or below the diagonal stream through (B tile 64 x 128, x tile
+// 64 x 64); their 64 x 64 weight tile goes through shared memory into the
+// W x product.  Rows of the staged tiles are padded to 129 (65) floats so
+// that the column walks of the products hit 16 distinct banks.  About 134 KB
+// of shared memory: one block per SM, one block per (b, h).
 __global__ void __launch_bounds__(THREADS, 1)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ da, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, T* __restrict__ y, float* __restrict__ st,
-                int S, int P, int N, int nheads, int Q) {
+ssd_scan_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ da, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, float* __restrict__ y, float* __restrict__ st,
+                    int S, int P, int N, int nheads, int Q) {
   extern __shared__ float smem[];
   float* sC = smem;
   float* sB = sC + TQ * NS;
@@ -126,12 +734,12 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / nheads;
-  const T* xb = x + (size_t)bh * S * P;
+  const float* xb = x + (size_t)bh * S * P;
   const float* dtb = dt + (size_t)bh * S;
   const float* dab = da + (size_t)bh * S;
-  const T* Bb = Bm + (size_t)b * S * N;
-  const T* Cb = Cm + (size_t)b * S * N;
-  T* yb = y + (size_t)bh * S * P;
+  const float* Bb = Bm + (size_t)b * S * N;
+  const float* Cb = Cm + (size_t)b * S * N;
+  float* yb = y + (size_t)bh * S * P;
 
   for (int i = tid; i < PT * NS; i += THREADS) sState[i] = 0.f;
 
@@ -243,7 +851,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int p = tx + 16 * j;
-            if (p < P) yb[(size_t)(c0 + q0 + r) * P + p] = from_f<T>(acc[i][j]);
+            if (p < P) yb[(size_t)(c0 + q0 + r) * P + p] = acc[i][j];
           }
         }
       }
@@ -295,41 +903,69 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int i = tid; i < P * N; i += THREADS) stb[i] = sState[(i / N) * NS + i % N];
 }
 
-template <typename T>
-int set_smem() {
-  return static_cast<int>(cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES));
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
 
-// Lift the dynamic shared-memory limit of both instantiations on the current
-// device.  Returns the CUDA error (0: done).
-extern "C" int ssd_init() {
-  int err = set_smem<float>();
-  if (err == 0) err = set_smem<__nv_bfloat16>();
-  return err;
+extern "C" {
+
+// Fetch the tensor-map encoder and lift the dynamic shared-memory limit of
+// every kernel on the current device.  Returns the CUDA error (0: done).
+int ssd_init() {
+  const int errs[6] = {load_encode_tiled(),
+                       set_smem(ssd_scan_f32_kernel, SMEM_BYTES),
+                       set_smem(ssd_chunk_state_kernel<true>, S1_SMEM),
+                       set_smem(ssd_chunk_state_kernel<false>, S1_SMEM),
+                       set_smem(ssd_chunk_out_kernel<true>, S3_SMEM),
+                       set_smem(ssd_chunk_out_kernel<false>, S3_SMEM)};
+  for (int e : errs)
+    if (e != 0) return e;
+  return 0;
 }
 
-// One block per (b, h).  Returns the CUDA error of the launch (0: launched).
-extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* da, const void* B,
-                               const void* C, void* y, void* state, int BH, int S, int P,
-                               int N, int nheads, int Q, int bf16, void* stream) {
-  if (P > PT || N > NT || Q > QMAX || Q <= 0 || S % Q) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(BH), block(THREADS);
-  const float* dtf = static_cast<const float*>(dt);
-  const float* daf = static_cast<const float*>(da);
-  float* stf = static_cast<float*>(state);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    ssd_scan_kernel<T><<<grid, block, SMEM_BYTES, s>>>(
-        static_cast<const T*>(x), dtf, daf, static_cast<const T*>(B), static_cast<const T*>(C),
-        static_cast<T*>(y), stf, S, P, N, nheads, Q);
-  } else {
-    ssd_scan_kernel<float><<<grid, block, SMEM_BYTES, s>>>(
-        static_cast<const float*>(x), dtf, daf, static_cast<const float*>(B),
-        static_cast<const float*>(C), static_cast<float*>(y), stf, S, P, N, nheads, Q);
-  }
-  return static_cast<int>(cudaGetLastError());
+// float32: one block per (b, h), the grid of the caller's plan (five ints:
+// grid x, y, z, threads, shared memory).  Returns the CUDA error of the
+// launch (0: launched); an invalid value for a plan that is not the kernel's.
+int ssd_scan_f32_launch(const void* x, const void* dt, const void* da, const void* B,
+                        const void* C, void* y, void* state, int BH, int S, int P, int N,
+                        int nheads, int Q, const int* plan, void* stream) {
+  const int own[1][2] = {{THREADS, SMEM_BYTES}};
+  dim3 grid;
+  if (P > PT || N > NT || Q > QMAX || Q <= 0 || S % Q || !plan_grids(plan, 1, own, &grid))
+    return (int)cudaErrorInvalidValue;
+  ssd_scan_f32_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(da), static_cast<const float*>(B), static_cast<const float*>(C),
+      static_cast<float*>(y), static_cast<float*>(state), S, P, N, nheads, Q);
+  return (int)cudaGetLastError();
 }
+
+// bfloat16: the three kernels, on the caller's temporaries acs (BH, S) float32,
+// states (BH, S / Q, 64, 128) float32 and entering (BH, S / Q, 64, 128)
+// bfloat16; `group` heads a chunk-output block; tma != 0 when P % 8 == 0,
+// N % 8 == 0 and x, B, C are 16-byte aligned; `plan`, five ints a kernel
+// (grid x, y, z, threads, shared memory), the grids of the caller's plan
+// (kernel.py ssd_plan).  Returns the CUDA error of the launches (0:
+// launched); an invalid value for a plan whose threads or shared memory are
+// not the kernels'.
+int ssd_scan_bf16_launch(const void* x, const void* dt, const void* da, const void* B,
+                         const void* C, void* y, void* state, void* acs, void* states,
+                         void* entering, int BH, int S, int P, int N, int nheads, int Q,
+                         int group, int tma, const int* plan, void* stream) {
+  const int own[3][2] = {{WG, S1_SMEM}, {S2_THREADS, 0}, {S3_THREADS, S3_SMEM}};
+  dim3 grids[3];
+  if (P > PP || N > NP || Q > QMAX || Q <= 0 || S % Q || group < 1 || group > MAX_GROUP ||
+      !plan_grids(plan, 3, own, grids))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tma)
+    return launch_bf16<true>(x, dt, da, B, C, y, state, acs, states, entering, BH, S, P, N,
+                             nheads, Q, group, grids, st);
+  return launch_bf16<false>(x, dt, da, B, C, y, state, acs, states, entering, BH, S, P, N,
+                            nheads, Q, group, grids, st);
+}
+
+}  // extern "C"

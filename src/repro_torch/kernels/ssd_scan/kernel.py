@@ -1,25 +1,37 @@
-"""The SSD-scan kernel on the card: build, bind, check, launch.
+"""The SSD-scan kernels on the card: build, bind, plan, check, launch.
 
 Replaces the Pallas TPU kernel ``ssd_scan_fwd`` of ``repro/kernels/ssd_scan/
 kernel.py``.  The CUDA source is ``repro_torch/csrc/ssd_scan.cu``; its header
-note says what bounds the kernel and how the design answers that.
+note says what bounds the kernels and how the designs answer that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
-  loaded with ``ctypes`` (``kernels/build.py``).  ``ssd_init`` lifts the
-  block's shared-memory limit once per device.
+  loaded with ``ctypes`` (``kernels/build.py``).  ``ssd_init`` looks up the
+  tensor-map encoder and lifts the blocks' shared-memory limit once per
+  device.
+* **Plan.**  ``ssd_plan`` is a pure function of the shapes and the card's
+  SM count: the bfloat16 call's three kernels (chunk states, state passing,
+  chunk outputs), each with the grid, threads and shared memory it is
+  launched with, the head group of a chunk-output block, whether TMA can
+  address the tensors, and the temporaries.  The float32 call is one
+  kernel, one block per (b, h).  The source refuses a plan whose threads or
+  shared memory are not its kernels' own.
 * **Launch.**  ``ssd_scan_cuda`` checks its inputs (CUDA, contiguous, x, B
   and C all bfloat16 or all float32, dt and da float32, ``P <= 64``, ``N <=
-  128``, the chunk at most 256 and dividing ``S``), allocates y and the final
-  state, launches on the current stream and raises on a non-zero CUDA error.
-  ``LAUNCHES`` counts the launches and nothing else.
+  128``, the chunk at most 256 and dividing ``S``), allocates y, the final
+  state and the temporaries, launches the plan on the current stream and
+  raises on a non-zero CUDA error.  ``LAUNCHES`` counts the calls that
+  launch (three kernels a bfloat16 call, one a float32 call) and nothing
+  else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
-from typing import Optional, Set
+from dataclasses import dataclass
+from typing import Optional, Set, Tuple
 
 import torch
 
@@ -32,11 +44,78 @@ BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 SOURCE = CSRC / "ssd_scan.cu"
 NVCC_FLAGS = COMMON_FLAGS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256  # csrc/ssd_scan.cu PT, NT, QMAX
+MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256  # csrc/ssd_scan.cu PP, NP, QMAX
+QTILES = 128     # query rows of a chunk-output block: two warpgroups of 64
+MAX_GROUP = 8    # csrc/ssd_scan.cu MAX_GROUP
+SMEM_LIMIT = 232448
+# csrc/ssd_scan.cu S1_SMEM, S3_SMEM and the float32 kernel's SMEM_BYTES (the
+# launch refuses other values)
+_ROWB, _TILE = 128, 64 * 128
+STAGE1_SMEM = 1024 + MAX_CHUNK * _ROWB + 2 * MAX_CHUNK * _ROWB + 2 * MAX_CHUNK * 4 + 24
+STAGE3_SMEM = (1024 + 4 * _TILE + 2 * MAX_CHUNK * _ROWB + 2 * (MAX_CHUNK * _ROWB + 2 * _TILE)
+               + 3 * MAX_GROUP * MAX_CHUNK * 4 + 64)
+F32_SMEM = 4 * (64 * 129 + 64 * 129 + 64 * 64 + 64 * 65 + 64 * 129 + 2 * 256 + 8)
 
 _lock = threading.Lock()
 _lib = None
-_ready: Set[int] = set()  # devices whose smem limit ssd_init has lifted
+_ready: Set[int] = set()  # devices whose smem limits ssd_init has lifted
+
+
+@dataclass(frozen=True)
+class Stage:
+    kernel: str
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+
+
+@dataclass(frozen=True)
+class SsdPlan:
+    chunk: int
+    chunks: int
+    head_group: int  # heads of a chunk-output block (bfloat16)
+    tma: bool        # the tensors are addressable by TMA (bfloat16)
+    stages: Tuple[Stage, ...]
+    temporaries: Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
+
+
+def head_group(Bb: int, chunks: int, pairs: int, nheads: int, sms: int) -> int:
+    """Heads a chunk-output block: the largest divisor of ``nheads`` up to
+    ``MAX_GROUP`` that still gives a block to each of the ``sms`` SMs (fewer
+    heads a block: more blocks, each recomputing C·Bᵀ), else 1."""
+    base = Bb * chunks * pairs
+    fits = [g for g in range(1, min(nheads, MAX_GROUP) + 1)
+            if nheads % g == 0 and base * (nheads // g) >= sms]
+    return max(fits) if fits else 1
+
+
+def ssd_plan(BH: int, S: int, P: int, N: int, nheads: int, chunk: int, dtype: torch.dtype,
+             sms: int, *, tma: bool = True) -> SsdPlan:
+    """The kernels one call launches for these shapes on a card of ``sms``
+    SMs.  ``tma``: x, B, C are 16-byte aligned (the plan also needs P and N
+    multiples of 8; else the bfloat16 kernels stage their tiles with
+    threads)."""
+    Q = min(chunk, S)
+    chunks = S // Q
+    if dtype == torch.float32:
+        return SsdPlan(Q, chunks, 0, False,
+                       (Stage("ssd_scan_f32_kernel", (BH, 1, 1), 256, F32_SMEM),), ())
+    Bb = BH // nheads
+    pairs = math.ceil(Q / QTILES)
+    g = head_group(Bb, chunks, pairs, nheads, sms)
+    pad = (MAX_P, MAX_N)
+    stages = (
+        Stage("ssd_chunk_state_kernel", (BH * chunks, 1, 1), 128, STAGE1_SMEM),
+        Stage("ssd_state_pass_kernel", (math.ceil(BH * pad[0] * pad[1] // 4 / 256), 1, 1), 256, 0),
+        Stage("ssd_chunk_out_kernel", (Bb * chunks, math.ceil(nheads / g), pairs), 384,
+              STAGE3_SMEM),
+    )
+    temporaries = (
+        ("acs", (BH, S), torch.float32),
+        ("states", (BH, chunks, *pad), torch.float32),
+        ("entering", (BH, chunks, *pad), torch.bfloat16),
+    )
+    return SsdPlan(Q, chunks, g, tma and P % 8 == 0 and N % 8 == 0, stages, temporaries)
 
 
 def build() -> ctypes.CDLL:
@@ -50,9 +129,13 @@ def build() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ssd_init.restype = i
         lib.ssd_init.argtypes = []
-        lib.ssd_scan_launch.restype = i
-        # x dt da B C y state | BH S P N nheads chunk bf16 stream
-        lib.ssd_scan_launch.argtypes = [p] * 7 + [i] * 7 + [p]
+        lib.ssd_scan_f32_launch.restype = i
+        # x dt da B C y state | BH S P N nheads chunk | plan stream
+        lib.ssd_scan_f32_launch.argtypes = [p] * 7 + [i] * 6 + [p, p]
+        lib.ssd_scan_bf16_launch.restype = i
+        # x dt da B C y state acs states entering | BH S P N nheads chunk group tma
+        # | plan stream
+        lib.ssd_scan_bf16_launch.argtypes = [p] * 10 + [i] * 8 + [p, p]
         _lib = lib
         return lib
 
@@ -113,21 +196,38 @@ def check_inputs(x, dt, da, B_, C_, nheads: int, chunk: int) -> int:
 
 
 def ssd_scan_cuda(x, dt, da, B_, C_, *, nheads: int, chunk: int):
-    """(y (BH, S, P) in x.dtype, final state (BH, P, N) float32) in ONE
-    kernel launch."""
+    """(y (BH, S, P) in x.dtype, final state (BH, P, N) float32): one kernel
+    for float32, the three of the plan for bfloat16.  The bfloat16 kernels
+    take L below the diagonal as two factors, each at most 1 where da <= 0
+    (csrc/ssd_scan.cu); with da > 0 a factor overflows only where the plain
+    version's own weight does, a_cs rising by more than 88 within a chunk."""
     global LAUNCHES
     Q = check_inputs(x, dt, da, B_, C_, nheads, chunk)
     lib = _library(x.device)
     BH, S, P = x.shape
     N = B_.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B_, C_))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = ssd_plan(BH, S, P, N, nheads, Q, x.dtype, sms, tma=aligned)
+    dims = [n for st in plan.stages for n in (*st.grid, st.threads, st.smem)]
+    dims = (ctypes.c_int * len(dims))(*dims)
     y = torch.empty_like(x)
     state = torch.empty((BH, P, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), da.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-            y.data_ptr(), state.data_ptr(), BH, S, P, N, nheads, Q, DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        if x.dtype == torch.float32:
+            err = lib.ssd_scan_f32_launch(
+                x.data_ptr(), dt.data_ptr(), da.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                y.data_ptr(), state.data_ptr(), BH, S, P, N, nheads, Q, dims, stream,
+            )
+        else:
+            tmp = [torch.empty(shape, dtype=dtype, device=x.device)
+                   for _, shape, dtype in plan.temporaries]
+            err = lib.ssd_scan_bf16_launch(
+                x.data_ptr(), dt.data_ptr(), da.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                y.data_ptr(), state.data_ptr(), *(t.data_ptr() for t in tmp), BH, S, P, N,
+                nheads, Q, plan.head_group, int(plan.tma), dims, stream,
+            )
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     with _lock:

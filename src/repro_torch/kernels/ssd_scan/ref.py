@@ -7,6 +7,10 @@
   held to it on the card; ``ops.ssd_scan`` runs it for CPU tensors.
 * :func:`ssd_ref` is a port of ``repro/kernels/ssd_scan/ref.py``: the exact
   token-by-token recurrence, for the tests.
+* :func:`ssd_staged_ref` computes the same function in the three stages of
+  the bfloat16 CUDA kernels (chunk states, state passing, chunk outputs),
+  optionally with operands rounded where the tensor cores take them; the
+  CPU tests hold it to the JAX package.  Nothing on the main path calls it.
 
 Layout (the kernel's): x ``(BH, S, P)``; dt and ``da = dt * A`` ``(BH, S)``
 float32; B and C ``(B, S, N)``, shared by the ``nheads`` heads of a batch row
@@ -72,3 +76,69 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torch.Tenso
         )
         ys.append(torch.einsum("bn,bpn->bp", Ch[:, t], state))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torch.Tensor,
+                   C_: torch.Tensor, *, nheads: int, chunk: int, rounded: bool = False):
+    """The function of :func:`ssd_scan_ref` in the kernels' three stages.
+
+    1. Chunk states: ``S_c = (x_c * s)^T B_c`` with ``s = exp(a_last -
+       a_cs) * dt``, each chunk on its own (the reference scales B instead).
+    2. State passing: ``H_0 = 0``, ``H_{c+1} = H_c * exp(a_last_c) + S_c``;
+       the last is the final state.
+    3. Chunk outputs: ``G = C_c B_c^T`` (once per batch row, shared by its
+       heads), ``y = (G o L o dt) x + (C_c H_c^T) * exp(a_cs)``.
+
+    With ``rounded`` the operands are rounded where the bfloat16 kernels'
+    tensor cores take them: the scaled x of stage 1 as a bf16 pair ``hi +
+    lo`` (``hi = bf16(x * s)``, ``lo = bf16(x * s - hi)``), the weights ``G o
+    L o dt`` and the state entering a chunk to bf16; x, B and C enter as they
+    are.  Sums stay float32.  Returns ``(y in x.dtype, final state float32)``.
+    """
+    BH, S, P = x.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+    xf = x.float().reshape(BH, nc, Q, P)
+    dtf = dt.float().reshape(BH, nc, Q)
+    a_cs = torch.cumsum(da.float().reshape(BH, nc, Q), dim=2)
+    Bh = B_.float().repeat_interleave(nheads, dim=0).reshape(BH, nc, Q, N)
+    Cb = C_.float().reshape(-1, nc, Q, N)
+
+    # 1. chunk states
+    scale = torch.exp(a_cs[..., -1:] - a_cs) * dtf  # (BH, nc, Q)
+    xs = xf * scale[..., None]
+    if rounded:
+        hi = _bf16(xs)
+        xs = hi + _bf16(xs - hi)
+    states = torch.matmul(xs.transpose(2, 3), Bh)  # (BH, nc, P, N)
+
+    # 2. state passing
+    h = torch.zeros((BH, P, N), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * torch.exp(a_cs[:, c, -1])[:, None, None] + states[:, c]
+    H = torch.stack(entering, dim=1)  # (BH, nc, P, N), the state entering each chunk
+    if rounded:
+        H = _bf16(H)
+
+    # 3. chunk outputs
+    G = torch.matmul(Cb, B_.float().reshape(-1, nc, Q, N).transpose(2, 3))  # (B, nc, Q, Q)
+    G = G.repeat_interleave(nheads, dim=0)  # shared by the heads of a batch row
+    rows = torch.arange(Q, device=x.device)
+    causal = rows[:, None] >= rows[None, :]
+    seg = a_cs[..., :, None] - a_cs[..., None, :]
+    L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+    W = G * L * dtf[..., None, :]
+    if rounded:
+        W = _bf16(W)
+    Ch = Cb.repeat_interleave(nheads, dim=0)
+    y = torch.matmul(W, xf) + torch.matmul(Ch, H.transpose(2, 3)) * torch.exp(a_cs)[..., None]
+    return y.reshape(BH, S, P).to(x.dtype), h

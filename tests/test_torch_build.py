@@ -50,11 +50,11 @@ def test_local_sources_follow_quoted_includes_once(tmp_path):
 
 
 def test_port_sources_hash_the_shared_hopper_header():
-    """Both tensor-core sources include csrc/hopper.cuh, so its edits rebuild
-    both libraries."""
-    for name in ("flash_attention.cu", "moe_gmm.cu"):
+    """The three tensor-core sources include csrc/hopper.cuh, so its edits
+    rebuild their libraries."""
+    for name in ("flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu"):
         assert [p.name for p in local_sources(CSRC / name)] == [name, "hopper.cuh"]
-    for name in ("stream_fused.cu", "rmsnorm.cu", "ssd_scan.cu", "quant.cu"):
+    for name in ("stream_fused.cu", "rmsnorm.cu", "quant.cu"):
         assert [p.name for p in local_sources(CSRC / name)] == [name]
 
 

@@ -7,7 +7,9 @@ kernel in interpret mode, at the shapes of ``tests/test_kernels.py``: within
 backward of the autograd ``Function`` (the closed-form gradient) is held to
 ``jax.grad`` of ``repro.model.layers.rms_norm`` in float32 within 1e-5.  The
 CUDA kernel runs only on the card (``chip_smoke.py`` holds it to this plain
-version there); here its wrapper's refusals are exercised.
+version there); here its wrapper's refusals are exercised, and its launch
+plan (``kernel.norm_plan``, a pure function of the shape) is held to hold
+every column of a row exactly once.
 """
 
 import jax
@@ -78,3 +80,45 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, s = _inputs((8, 64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.rmsnorm_cuda(torch.from_numpy(x), torch.from_numpy(s))
+
+
+PLAN_SHAPES = [
+    # (R, d, dtype): the serving and training paths' norms, deepseek-moe-16b's
+    # d 2048, a width off the vector (the scalar instantiation), a row wider
+    # than eight warps' registers, few rows, one element
+    (16384, 768, torch.bfloat16), (16384, 1536, torch.bfloat16), (16384, 576, torch.bfloat16),
+    (16384, 2048, torch.bfloat16), (8, 768, torch.bfloat16), (8, 1536, torch.bfloat16),
+    (8, 576, torch.bfloat16), (8, 2048, torch.bfloat16), (16384, 768, torch.float32),
+    (16384, 1536, torch.float32), (16384, 771, torch.bfloat16), (8, 771, torch.bfloat16),
+    (3, 100000, torch.float32), (300, 64, torch.float32), (1, 1, torch.bfloat16),
+    (8, 40000, torch.bfloat16), (8, 100000, torch.float32),  # chip_smoke.py's rows in passes
+]
+
+
+@pytest.mark.parametrize("R,d,dtype", PLAN_SHAPES)
+def test_norm_plan_holds_every_column_of_a_row_once(R, d, dtype):
+    plan = kernel.norm_plan(R, d, dtype)
+    wpr, vpl, vec = plan.warps_per_row, plan.vecs_per_lane, plan.vec
+    assert wpr in kernel.WARPS_PER_ROW and wpr * plan.rows_per_block <= kernel.BLOCK_WARPS
+    assert vpl in kernel.VPLS
+    width = 16 // (torch.finfo(dtype).bits // 8)
+    assert vec == (width if d % width == 0 else 1)
+    lanes = 32 * wpr
+    span = lanes * vpl * vec
+    cols = np.array([p * span + (v * lanes + lt) * vec + j for p in range(plan.passes)
+                     for v in range(vpl) for lt in range(lanes) for j in range(vec)])
+    assert np.array_equal(np.sort(cols[cols < d]), np.arange(d))  # each column once
+    assert (plan.passes - 1) * span < d  # no pass wholly past the row
+    assert plan.blocks(R) * plan.rows_per_block >= R
+    if R < kernel.FEW_ROWS:  # decode: a block a row, each row spread over its warps
+        assert plan.rows_per_block == 1 and plan.blocks(R) == R
+        assert vpl * vec * 32 * (wpr // 2) < d or wpr == 1
+    else:
+        assert vpl <= kernel.HELD[vec > 1] or wpr == kernel.WARPS_PER_ROW[-1]
+
+
+def test_norm_plan_takes_the_scalar_instantiation_off_the_vector():
+    assert kernel.norm_plan(16384, 768, torch.bfloat16, aligned=False).vec == 1
+    assert kernel.norm_plan(16384, 768, torch.bfloat16).vec == 8
+    assert kernel.norm_plan(16384, 770, torch.float32).vec == 1
+    assert kernel.norm_plan(8, 1536, torch.bfloat16).warps_per_row == 8
