@@ -4,19 +4,32 @@
 
 Phases, one line or more each:
 
-1. build   — compile the six CUDA sources (``src/repro_torch/csrc/``), one
-             nvcc each for sm_90a, all in parallel; print the build times,
-             the ptxas reports and the card's name and power limit.
-2. kernel  — the CUDA kernel against its plain PyTorch version on the card,
-             bitwise, for the demo program and the four fused Table-I
-             programs at N = 4*4096 (one megastep launch at block 4096) and
-             N = 32*4*4096 (one serve round of 32 lanes), inputs seeded with
-             NaN, +-0 and +-inf; kernel and plain times from CUDA events
-             beside the least time the card could take.
+1. build   — compile the five CUDA sources (``src/repro_torch/csrc/*.cu``)
+             and the stream kernel generated for each program phase 2 runs
+             (the demo, the four fused Table-I programs, a P = 24 perm and
+             the +-0 ties;
+             ``kernels/stream_fused/kernel.py`` writes them under
+             ``src/repro_torch/build/`` from the template
+             ``csrc/stream_fused.cuh``), one nvcc each for sm_90a, all in
+             parallel; print the build times, the ptxas reports (a spill in
+             a generated stream kernel fails the run) and the card's name
+             and power limit.
+2. kernel  — each generated stream kernel against its plain PyTorch
+             version on the card, bitwise, for the demo program, the four
+             fused Table-I programs and a perm of P = 24 (staged over the
+             block) at N = 4*4096 (one megastep launch at block 4096), N =
+             32*4*4096 (one serve round of 32 lanes) and N = 256*4*4096 (each
+             rounded down to the program's block unit), inputs seeded with
+             NaN, +-0 and +-inf, on wires off a 16-byte boundary (scalar
+             loads), and on +-0 ties through min2 / max2; kernel and plain device times
+             (CUDA-graph replay) beside the least time the card could take
+             and an empty kernel's time on the same grid (the launch floor).
 3. e2e     — the main path: ``repro_torch.compile(net, backend="device",
              block=4096).run()`` on the five Table-I networks at the
              benchmark sizes, with the kernel's launch count set to 0 just
-             before and read just after; then the checks against the host
+             before and read just after (exactly TopFilter 0, FIR32 1,
+             Bitonic8 2, IDCT8 2, ZigZag 2) and no kernel build or load
+             inside ``RunReport.seconds``; then the checks against the host
              backend and the port's bitwise invariants (fused == unfused,
              megastep == per-iteration, 2 partitions == 1), and a second,
              instrumented run per network for the boundary breakdown.
@@ -60,9 +73,9 @@ Phases, one line or more each:
              P=64, N=128, chunk 256, bfloat16), two ragged bf16 shapes (P, N
              zero-padded through TMA; P, N and the chunk off every tile
              width, staged by threads), a float32 shape and a small one,
-             and a bf16 shape with da > 0 on every second head, outside the
-             domain where SSD_TOL holds the bf16 y (its state and finiteness
-             checked, y's error recorded); kernel and plain device times (CUDA-graph replay)
+             and a bf16 shape with da > 0 on every second head (there the
+             kernels take W and the entering state as bf16 pairs; y and the
+             state held to SSD_TOL); kernel and plain device times (CUDA-graph replay)
              beside the bound (SSD: at the tensor cores' rate and at
              float32's), ``F.rms_norm`` beside RMSNorm (no PyTorch call
              computes the SSD scan), and at the SSD path each of the call's
@@ -145,6 +158,7 @@ missing.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -161,10 +175,12 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
-TOKENS = {"main": 4 * 4096, "serve": 32 * 4 * 4096}
+TOKENS = {"main": 4 * 4096, "serve": 32 * 4 * 4096, "wide": 256 * 4 * 4096}
+REPS = {"main": 200, "serve": 40, "wide": 10}
 SIZES = {"TopFilter": 40000, "FIR32": 8000, "Bitonic8": 1500, "IDCT8": 1500, "ZigZag": 200}
 EXACT = {"TopFilter", "Bitonic8", "ZigZag"}
 FUSED_NETS = ("FIR32", "Bitonic8", "IDCT8", "ZigZag")
+EXPECTED_LAUNCHES = {"TopFilter": 0, "FIR32": 1, "Bitonic8": 2, "IDCT8": 2, "ZigZag": 2}
 BLOCK = 4096
 
 failures: list = []
@@ -212,6 +228,29 @@ def demo_program():
         StreamOp("clip", (7,), 8, (-2.0, 2.0)),
     )
     return StreamProgram(n_inputs=2, n_regs=9, ops=ops, outputs=(6, 8))
+
+
+def perm24_program():
+    """A perm of P = 24 (no divisor of a warp's 128 tokens, so the kernel
+    stages the block's tokens), then matmul8 and clip: block unit 24."""
+    from repro_torch.kernels.stream_fused import StreamOp, StreamProgram
+
+    idx = np.random.default_rng(24).permutation(24)
+    basis = np.linalg.qr(np.random.default_rng(1).normal(size=(8, 8)))[0].astype(np.float32)
+    ops = (
+        StreamOp("perm", (0,), 1, (idx,)),
+        StreamOp("matmul8", (1,), 2, (basis,)),
+        StreamOp("clip", (2,), 3, (-50.0, 50.0)),
+    )
+    return StreamProgram(n_inputs=1, n_regs=4, ops=ops, outputs=(3,))
+
+
+def ties_program():
+    """min2 and max2 of two wires: the +-0 ties phase 2 holds bitwise."""
+    from repro_torch.kernels.stream_fused import StreamOp, StreamProgram
+
+    return StreamProgram(2, 4, (StreamOp("min2", (0, 1), 2), StreamOp("max2", (0, 1), 3)),
+                         (2, 3))
 
 
 def flops_per_token(program) -> int:
@@ -304,14 +343,18 @@ def device_ms(fn, reps: int) -> float:
     return _events(graph.replay, reps)
 
 
-def phase_kernel(programs) -> dict:
+def phase_kernel(programs, ties) -> dict:
     from repro_torch.kernels.stream_fused import kernel
     from repro_torch.kernels.stream_fused.ref import fused_stream_ref
 
-    print("phase 2: kernel against its plain version on the card", flush=True)
+    print("phase 2: generated stream kernels against their plain version on the card",
+          flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for seed, (name, prog) in enumerate(programs.items()):
+        unit = kernel.plan(prog).unit
         for size, n in TOKENS.items():
+            n -= n % unit  # a whole number of the program's blocks
             xs = seeded_inputs(prog, n, seed)
             got = kernel.fused_stream_cuda(xs, prog)
             want = fused_stream_ref(xs, prog)
@@ -321,32 +364,51 @@ def phase_kernel(programs) -> dict:
                 s, e = compare(g, w)
                 same, err = same and s, max(err, e)
             check(same, f"kernel != plain version bitwise: {name} N={n}")
-            reps = 200 if n <= TOKENS["main"] else 40
+            del got, want
+            reps = REPS[size]
+            # the wide rows rotate through four copies of the inputs, so that
+            # no launch finds its inputs in the card's 50 MB L2
+            sets = itertools.cycle([xs] + [[x.clone() for x in xs]
+                                           for _ in range(3 if size == "wide" else 0)])
 
             def launch():
-                return kernel.fused_stream_cuda(xs, prog)
+                return kernel.fused_stream_cuda(next(sets), prog)
 
             def plain():
-                return fused_stream_ref(xs, prog)
+                return fused_stream_ref(next(sets), prog)
+
+            def empty():
+                kernel.empty_launch(xs, prog)
 
             ms, plain_ms = device_ms(launch, reps), device_ms(plain, reps)
+            floor_ms = device_ms(empty, reps)
             k_call, p_call = call_ms(launch, reps), call_ms(plain, reps)
             nbytes = 4 * n * (prog.n_inputs + len(prog.outputs))
             flops = flops_per_token(prog) * n
             b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+            k, threads, blocks = kernel.launch_shape(kernel.plan(prog), n, sms)
             row = dict(
                 program=name, N=n, bitwise=same, max_abs_err=err, kernel_ms=ms,
-                plain_ms=plain_ms, call_ms=k_call, plain_call_ms=p_call,
-                bound_ms=max(b_bytes, b_ops),
+                plain_ms=plain_ms, launch_floor_ms=floor_ms, call_ms=k_call,
+                plain_call_ms=p_call, bound_ms=max(b_bytes, b_ops),
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
-                bytes=nbytes, flops=flops, n_slots=kernel.lower(prog).n_slots,
+                bound_share=max(b_bytes, b_ops) / ms, bytes=nbytes, flops=flops,
+                groups_a_thread=k, threads=threads, blocks=blocks,
             )
             rows[(name, size)] = row
             print("  " + json.dumps(row), flush=True)
+            del xs
+        torch.cuda.empty_cache()
+    # wires 4 bytes off a 16-byte boundary: the kernels' scalar loads and stores
+    for seed, (name, prog) in enumerate(programs.items()):
+        n = TOKENS["main"] - TOKENS["main"] % kernel.plan(prog).unit
+        xs = [torch.cat([x.new_zeros(1), x])[1:] for x in seeded_inputs(prog, n, seed)]
+        got = kernel.fused_stream_cuda(xs, prog)
+        same = all(compare(g, w)[0] for g, w in zip(got, fused_stream_ref(xs, prog)))
+        check(same and xs[0].data_ptr() % 16 == 4,
+              f"kernel != plain version bitwise on unaligned wires: {name}")
+    print(f"  unaligned wires (scalar loads): bitwise for {list(programs)}", flush=True)
     # +-0 ties through min2/max2: what the card does, held bitwise
-    from repro_torch.kernels.stream_fused import StreamOp, StreamProgram
-
-    ties = StreamProgram(2, 4, (StreamOp("min2", (0, 1), 2), StreamOp("max2", (0, 1), 3)), (2, 3))
     a = torch.tensor([0.0, -0.0] * 4, device="cuda")
     b = torch.tensor([-0.0, 0.0] * 4, device="cuda")
     kmin, kmax = kernel.fused_stream_cuda([a, b], ties)
@@ -357,8 +419,8 @@ def phase_kernel(programs) -> dict:
     def signs(t):
         return "".join("-" if torch.signbit(v) else "+" for v in t[:2].cpu())
 
-    for k, p in ((kmin, pmin), (kmax, pmax)):
-        check(compare(k, p)[0], "kernel != plain version on +-0 ties")
+    for k_, p in ((kmin, pmin), (kmax, pmax)):
+        check(compare(k_, p)[0], "kernel != plain version on +-0 ties")
     print(
         "  zero ties (a=[+0,-0], b=[-0,+0]): "
         f"min kernel {signs(kmin)} plain-cuda {signs(pmin)} plain-cpu {signs(cmin)}; "
@@ -384,14 +446,25 @@ def phase_e2e(nets) -> dict:
 
     print("phase 3: end to end, the main path", flush=True)
     kernel.LAUNCHES = 0  # the count covers the main path's runs only
-    main, launches = {}, {}
+    main, launches, loads = {}, {}, []
     for name in SIZES:
-        before = kernel.LAUNCHES
+        before, built = kernel.LAUNCHES, len(kernel.BUILDS)
         out, rep, prog = run_net(nets, name, backend="device", block=BLOCK)
         torch.cuda.synchronize()
+        t_end = time.perf_counter()
         launches[name] = kernel.LAUNCHES - before
         main[name] = (out, rep, prog)
+        # every program this run compiled (plan, emit, build or load) was
+        # done before run() began
+        for t0, t1, lib in kernel.BUILDS[built:]:
+            loads.append(dict(network=name, library=lib, seconds=t1 - t0,
+                              before_run_s=t_end - rep.seconds - t1))
+            check(t1 <= t_end - rep.seconds,
+                  f"{name}: kernel {lib} compiled inside RunReport.seconds")
     print(f"  kernel launches on the main path: {launches}", flush=True)
+    check(len(loads) == len(FUSED_NETS), f"{len(loads)} programs compiled, not one a network")
+    print(f"  programs compiled with the partitions (off the run's clock): {loads}", flush=True)
+    check(launches == EXPECTED_LAUNCHES, f"launches {launches} != {EXPECTED_LAUNCHES}")
 
     for name, (out, rep, prog) in main.items():
         devs = {str(p.device) for p in prog.device_programs().values()}
@@ -428,7 +501,7 @@ def phase_e2e(nets) -> dict:
             us = getattr(ev, "self_device_time_total", None)
             us = getattr(ev, "self_cuda_time_total", 0.0) if us is None else us
             busy_us += us
-            if ev.key.startswith("stream_fused_kernel"):
+            if "stream_fused_kernel" in ev.key:
                 kern_us += us
         ps = [pl.stats for pl in rt.plinks.values()]
         lanes = {pl.name for pl in rt.plinks.values()}
@@ -913,8 +986,8 @@ SSD_SHAPES = {
 # reference's SSD tolerance); a bf16 y differs by about one rounding of the
 # output and of the tensor-core operands (csrc/ssd_scan.cu)
 SSD_TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (2e-3, 2e-3)}  # (y, state)
-# da > 0 on every second head, a_cs rising by a few units a chunk: outside
-# the domain where SSD_TOL holds the bf16 kernels' y (csrc/ssd_scan.cu)
+# da > 0 on every second head, a_cs rising by a few units a chunk: the bf16
+# kernels take W and the entering state as bf16 pairs there (csrc/ssd_scan.cu)
 SSD_RISING = (2, 512, 4, 64, 128, 256, torch.bfloat16)
 
 
@@ -1065,10 +1138,9 @@ def phase_norm_ssd():
         ssd_rows[shape] = row
         print("  " + json.dumps(row), flush=True)
 
-    # Beyond that domain: L's factors and exp(a_cs) exceed 1, and W and the
-    # entering state, rounded to bf16, lose accuracy with them.  Gated: finite
-    # outputs and the state within SSD_TOL; y's error and its share of
-    # SSD_TOL's y limit are recorded.
+    # da > 0: L's factors and exp(a_cs) exceed 1 and the state grows; the
+    # kernels take W and the entering state as bf16 pairs in those chunks.
+    # Gated: finite outputs, y and the state within SSD_TOL.
     B, S, nh, P, N, chunk, dtype = SSD_RISING
     x, dt, A, B_, C_ = ssd_inputs(B, S, nh, P, N, dtype, 300)
     A = torch.where(torch.arange(nh, device="cuda") % 2 == 1, -0.05 * A, A)
@@ -1082,6 +1154,8 @@ def phase_norm_ssd():
           "ssd_scan rising: non-finite kernel output")
     check(close(st_k, st_p, tol_s), f"ssd_scan rising: kernel state not within {tol_s} of "
                                     f"plain (max abs err {max_err(st_k, st_p):.3g})")
+    check(close(y_k, y_p, tol_y), f"ssd_scan rising: kernel y not within {tol_y} of "
+                                  f"plain (max abs err {max_err(y_k, y_p):.3g})")
     err = (y_k.float() - y_p.float()).abs()
     print("  " + json.dumps({"ssd_scan_rising": dict(
         B=B, S=S, nh=nh, P=P, N=N, chunk=chunk, max_abs_err_y=float(err.max()),
@@ -2004,8 +2078,10 @@ def phase_compress() -> dict:
     return row
 
 
-def build_all():
-    """Build every kernel library at once: one nvcc per source, in parallel."""
+def build_all(programs) -> None:
+    """Build every kernel library at once, one nvcc per source in parallel:
+    the five sources of ``csrc/`` and the stream kernel generated for each of
+    ``programs``.  A spill in a generated stream kernel fails the run."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.moe_gmm import kernel as gmm
     from repro_torch.kernels.quant import kernel as quant
@@ -2013,26 +2089,42 @@ def build_all():
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.stream_fused import kernel as stream
 
-    mods = (stream, flash, rms, ssd, gmm, quant)
+    mods = (flash, rms, ssd, gmm, quant)
+    jobs = [(mod.SOURCE.name, mod.build) for mod in mods]
+    compiled = {}
+
+    def gen(name, prog):
+        compiled[name] = stream.compile_program(prog, "cuda:0")
+
+    jobs += [(f"stream[{name}]", lambda n=name, p=prog: gen(n, p))
+             for name, prog in programs.items()]
     errors = []
 
-    def run(mod):
+    def run(name, fn):
         try:
-            mod.build()
+            fn()
         except Exception as e:  # noqa: BLE001 — reported below, fails the run
-            errors.append(f"{mod.__name__}: {e}")
+            errors.append(f"{name}: {e}")
 
-    threads = [threading.Thread(target=run, args=(m,)) for m in mods]
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
+    if errors:
+        raise RuntimeError("kernel build failed: " + "; ".join(errors))
     for mod in mods:
         print(f"  {mod.SOURCE.name}: nvcc build {mod.BUILD_SECONDS}s", flush=True)
         for line in mod.BUILD_LOG.strip().splitlines():
             print(f"    {line.strip()}", flush=True)
-    if errors:
-        raise RuntimeError("kernel build failed: " + "; ".join(errors))
+    seconds = {lib: t1 - t0 for t0, t1, lib in stream.BUILDS}  # plan, emit, nvcc, load
+    for name, c in compiled.items():
+        pl = c.plan
+        print(f"  stream[{name}] -> {c.library}.cu: {len(pl.steps)} ops, perm scope "
+              f"{'block' if pl.block_scope else 'warp' if pl.span else 'none'}, "
+              f"{pl.k_big} groups a thread at large N; built in {seconds[c.library]:.2f}s",
+              flush=True)
+        check_ptxas(stream.BUILD_LOG[c.library], "stream_fused_kernel", lambda fn: True)
 
 
 def main() -> int:
@@ -2047,10 +2139,12 @@ def main() -> int:
     card = gpu_line()
     print(f"phase 1: build; card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    build_all()
+    programs = {"demo": demo_program(), **network_programs(NETWORKS),
+                "perm24": perm24_program()}
+    ties = ties_program()
+    build_all({**programs, "ties": ties})
 
-    programs = {"demo": demo_program(), **network_programs(NETWORKS)}
-    rows = phase_kernel(programs)
+    rows = phase_kernel(programs, ties)
     launches = phase_e2e(NETWORKS)
     flash_rows = phase_flash()
     train = phase_train()
@@ -2070,14 +2164,19 @@ def main() -> int:
         row = rows[(name, "main")]
         record["kernels"].append(dict(
             name=f"fused_stream[{name}]", route="cuda",
-            source="src/repro_torch/csrc/stream_fused.cu",
+            source="src/repro_torch/csrc/stream_fused.cuh",
+            generator="src/repro_torch/kernels/stream_fused/kernel.py",
             replaces="src/repro/kernels/stream_fused/kernel.py:74",
             launches=launches[name], max_abs_err=max(
                 rows[(name, s)]["max_abs_err"] for s in TOKENS
             ),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
-            design="bytecode interpreter over a wire stack in shared memory (PR 11)",
+            ms_by_N={rows[(name, s)]["N"]: rows[(name, s)]["kernel_ms"] for s in TOKENS},
+            design="one generated straight-line kernel per StreamProgram: wires in "
+                   "registers, 4 tokens a thread (16-byte loads), parameters as float32 "
+                   "bit patterns, matmul8 across a lane pair by shuffles, perm through one "
+                   "shared-memory staging",
         ))
     designs = {
         "flash_fwd": "wgmma, TMA tensor maps, mbarrier ring (PR 16)",
@@ -2091,8 +2190,9 @@ def main() -> int:
                    "registers in passes",
         "ssd_scan": "bf16: 3 kernels a call (chunk states (x*s as bf16 hi+lo)^T.B on wgmma, "
                     "float32 state passing, chunk outputs with C.B^T once per head group and "
-                    "W.x on wgmma from registers, TMA and an mbarrier ring); f32: one "
-                    "CUDA-core kernel",
+                    "W.x on wgmma from registers, TMA and an mbarrier ring; W and the entering "
+                    "state as bf16 pairs hi+lo in a row's chunks from its first with da > 0); "
+                    "f32: one CUDA-core kernel",
         "moe_gmm": "wgmma m64n256k16 (n128 on a last narrow tile), 3-d TMA tensor maps, "
                    "mbarrier ring, a producer warpgroup (PR 17)",
         "quantize_int8": "one block per row, two passes over it (PR 15)",

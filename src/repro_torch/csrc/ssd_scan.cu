@@ -51,8 +51,10 @@
 //   2. ssd_state_pass_kernel, one thread per four state elements of a row
 //      bh, walking the chunks: H_0 = 0, H_{c+1} = H_c * exp(a_last_c) + S_c
 //      in float32; it writes the state entering each chunk, rounded to
-//      bf16, to a second temporary (BH, chunks, 64, 128), and the last H as
-//      the final state.
+//      bf16, to a second temporary (2, BH, chunks, 64, 128), and the last H
+//      as the final state.  From the first chunk of the row where a_cs rises
+//      (stage 1 flags each chunk with some da > 0) on, it also writes lo =
+//      bf16(H - hi) beside it: there H and W enter stage 3 as bf16 pairs.
 //   3. ssd_chunk_out_kernel, one block per (b, chunk, pair of 64-row query
 //      tiles 2 z and 2 z + 1, group of heads): two consumer warpgroups, one
 //      a query tile, and a producer warpgroup (setmaxnreg 24 / 240).  One
@@ -76,7 +78,14 @@
 //      most 1.  With da > 0 a factor can exceed 1; it overflows only where
 //      a_cs rises by more than 88 within the chunk, and then the plain
 //      version's own weight exp(a_q - a_k1) or exp(a_k1 - a_k) overflows
-//      too, so its y is not finite in that chunk either.
+//      too, so its y is not finite in that chunk either.  Where a_cs has
+//      risen (in the chunk or an earlier one of the row) the state and y
+//      grow past what one bf16 rounding of W and H keeps within the y
+//      tolerance: there (a flag uniform over the block, broadcast from lane 0
+//      so that no wgmma is serialised) the producer loads H's lo tiles into
+//      the B tiles' place once G is done with them, C Hlo^T is added, and a
+//      second pass over the key tiles adds W's lo parts; where da <= 0 (the
+//      models) no chunk takes the pair and the kernel does what it did.
 //      The caller's plan (kernel.py ssd_plan) gives every kernel's grid, and
 //      the launch refuses it unless its threads and shared memory are the
 //      kernel's.  It takes the largest head group, at most 8, that still
@@ -101,7 +110,8 @@
 // lo^T B and W x.  Rounded operands: x~ = x * s (one float32 product) to the
 // pair hi + lo (about 16 bits: the scaled operand wholly in bf16 would use
 // most of the state's 2e-3 tolerance); the state entering a chunk, for
-// y_inter only, to bf16 (the carried state stays float32); W, to bf16: on
+// y_inter only, to bf16, or to the pair hi + lo in a chunk where a_cs has
+// risen (the carried state stays float32); W, to bf16 (a pair likewise): on
 // the diagonal tile (G * L) * dt with L from __expf (ex2.approx of a
 // multiply), below it (G * exp(a_q - a_k1)) * (exp(a_k1 - a_k) * dt), each
 // product rounded in float32.  exp(a_last - a_cs), exp(a_last) and exp(a_cs[q]) use
@@ -178,8 +188,9 @@ __device__ void stage_tile(unsigned char* dst, int chunk_bytes, int rows, int nc
 }
 
 // the inclusive cumsum of a chunk's Q <= 256 values of da (zeros past Q), two
-// a thread, by the 128 threads of the block
-__device__ void chunk_cumsum(const float* __restrict__ da, int Q, float* acs, float* ws) {
+// a thread, by the 128 threads of the block; returns whether a_cs rises (some
+// da > 0), the block's answer
+__device__ int chunk_cumsum(const float* __restrict__ da, int Q, float* acs, float* ws) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const float d0 = 2 * t < Q ? da[2 * t] : 0.f;
   const float d1 = 2 * t + 1 < Q ? da[2 * t + 1] : 0.f;
@@ -192,11 +203,12 @@ __device__ void chunk_cumsum(const float* __restrict__ da, int Q, float* acs, fl
   if (lane == 31) ws[warp] = v;
   float before = __shfl_up_sync(0xffffffffu, v, 1);
   if (lane == 0) before = 0.f;
-  __syncthreads();
+  const int up = __syncthreads_or(d0 > 0.f || d1 > 0.f);
   for (int w = 0; w < warp; ++w) before += ws[w];
   const float a0 = before + d0;
   acs[2 * t] = a0;
   acs[2 * t + 1] = a0 + d1;
+  return up;
 }
 
 // v = hi + lo to about 16 bits, for two neighbouring values of a fragment
@@ -216,8 +228,8 @@ __global__ void __launch_bounds__(WG, 2)
 ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
                        const bf16* __restrict__ x, const float* __restrict__ dt,
                        const float* __restrict__ da, const bf16* __restrict__ Bm,
-                       float* __restrict__ acs_out, float* __restrict__ states, int S, int P,
-                       int N, int nheads, int Q) {
+                       float* __restrict__ acs_out, float* __restrict__ states,
+                       int* __restrict__ rising, int S, int P, int N, int nheads, int Q) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sx = align1024(smem_raw);
   unsigned char* sb = sx + S1_X;
@@ -243,8 +255,9 @@ ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
     }
   }
 
-  chunk_cumsum(da + row0, Q, sacs, ws);
+  const int up = chunk_cumsum(da + row0, Q, sacs, ws);
   __syncthreads();
+  if (tid == 0) rising[blockIdx.x] = up;
   const float a_last = sacs[Q - 1];
   for (int k = tid; k < QMAX; k += WG) {
     float s = 0.f;  // zero past the chunk: those rows of the tiles are the next chunk's
@@ -315,11 +328,20 @@ ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
   }
 }
 
-// Stage 2.  Thread (bh, p, 4 n): the state entering each chunk, in bf16, and
-// the final state.
+// the four values as bf16 pairs: hi = bf16(v) and lo = bf16(v - hi)
+__device__ __forceinline__ void split4(const float4& v, uint2& hi, uint2& lo) {
+  split_pair(v.x, v.y, hi.x, lo.x);
+  split_pair(v.z, v.w, hi.y, lo.y);
+}
+
+// Stage 2.  Thread (bh, p, 4 n): the state entering each chunk in bf16, hi
+// (and lo = bf16(H - hi) from the first chunk of the row where a_cs rises
+// on, for which the row's first thread sets pairs[]), and the final state.
 __global__ void __launch_bounds__(S2_THREADS)
 ssd_state_pass_kernel(const float* __restrict__ states, const float* __restrict__ acs,
-                      bf16* __restrict__ entering, float* __restrict__ final_state, int BH,
+                      const int* __restrict__ rising, int* __restrict__ pairs,
+                      bf16* __restrict__ entering,
+                      bf16* __restrict__ entering_lo, float* __restrict__ final_state, int BH,
                       int S, int P, int N, int Q) {
   constexpr int V = PP * NP / 4;  // float4s of a state
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -328,12 +350,22 @@ ssd_state_pass_kernel(const float* __restrict__ states, const float* __restrict_
   const int bh = (int)(i / V), e = (int)(i % V);
   const float4* s = reinterpret_cast<const float4*>(states) + (size_t)bh * chunks * V + e;
   uint2* o = reinterpret_cast<uint2*>(entering) + (size_t)bh * chunks * V + e;
+  uint2* o_lo = reinterpret_cast<uint2*>(entering_lo) + (size_t)bh * chunks * V + e;
+  const int* up = rising + (size_t)bh * chunks;
   const float* a_last = acs + (size_t)bh * S + Q - 1;
   float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+  int pair = 0;  // from the row's first chunk where a_cs rises on
 #pragma unroll 4
   for (int c = 0; c < chunks; ++c) {
     const float4 sc = s[(size_t)c * V];
     o[(size_t)c * V] = make_uint2(pack_bf16(h.x, h.y), pack_bf16(h.z, h.w));
+    pair |= up[c];
+    if (e == 0) pairs[(size_t)bh * chunks + c] = pair;
+    if (pair) {
+      uint2 hi, lo;
+      split4(h, hi, lo);
+      o_lo[(size_t)c * V] = lo;
+    }
     const float d = expf(a_last[(size_t)c * Q]);
     h.x = __fadd_rn(__fmul_rn(h.x, d), sc.x);
     h.y = __fadd_rn(__fmul_rn(h.y, d), sc.y);
@@ -356,9 +388,37 @@ struct OutArgs {
   const bf16* Bm;
   const bf16* Cm;
   const bf16* entering;
+  const bf16* entering_lo;  // (entering's tensor map: rows from lo_row on)
+  const int* pairs;         // (bh, chunk): W and H as bf16 pairs
   bf16* y;
-  int S, P, N, nheads, Q, group;
+  int S, P, N, nheads, Q, group, lo_row;
 };
+
+// bit i: W and the entering state as bf16 pairs for head bh0 + i of the
+// group's ng in chunk c (a_cs has risen in it or an earlier chunk of the
+// row), asked by lane i of a whole warp and broadcast from lane 0, so that
+// the compiler sees a warp-uniform value (it is the block's): a branch around
+// a wgmma it cannot prove uniform serialises every wgmma of the kernel
+__device__ __forceinline__ unsigned pair_mask(const int* pairs, int bh0, int ng, int c,
+                                              int chunks) {
+  const int lane = threadIdx.x & 31;
+  const unsigned m =
+      __ballot_sync(0xffffffffu, lane < ng && pairs[(size_t)(bh0 + lane) * chunks + c]);
+  return __shfl_sync(0xffffffffu, m, 0);
+}
+
+// W's bf16 operand for two neighbouring weights: hi = bf16(w), or with LO
+// the pair's lo = bf16(w - hi)
+template <bool LO>
+__device__ __forceinline__ uint32_t pack_w(float v0, float v1) {
+  if constexpr (LO) {
+    uint32_t hi, lo;
+    split_pair(v0, v1, hi, lo);
+    return lo;
+  } else {
+    return pack_bf16(v0, v1);
+  }
+}
 
 // the weight of key k for query q, G o L o dt; L is a select, never a
 // multiply by a mask (exp overflows above the diagonal)
@@ -376,6 +436,168 @@ __device__ __forceinline__ void store_pair(bf16* yc, int q, int p, float v0, flo
   } else {
     if (p < P) row[p] = __float2bfloat16_rn(v0);
     if (p + 1 < P) row[p + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// W's A fragments for key tile kt (keys 64 kt + 16 kk + 2 tig, +1, +8, +9)
+// and this thread's query rows q0, q1 of query tile qt, hi or (LO) the
+// pair's lo.  Below the diagonal (kt < qt) every q > k1 >= k, k1 = 64 kt +
+// 63, and L = exp(a_q - a_k1) exp(a_k1 - a_k), each factor at most 1 where
+// da <= 0 (the header note says what da > 0 gives): two exponentials a row
+// and one a key (cks) for the tile, none an element.  On the diagonal tile
+// (and the first warpgroup's tile above it, all zeros) L is the select of
+// one exponential an element.
+template <bool LO>
+__device__ __forceinline__ void w_frags(uint32_t (&w)[4][4], const float (&G)[32], int kt,
+                                        int qt, int q0, int q1, float a0, float a1,
+                                        const float* acs, const float* dts, const float* cks,
+                                        int tig) {
+  if (kt < qt) {
+    const float ak1 = acs[64 * kt + 63];
+    const float r0 = expf(a0 - ak1), r1 = expf(a1 - ak1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 64 * kt + 16 * kk + 2 * tig;
+      const float2 c = *reinterpret_cast<const float2*>(cks + k);
+      const float2 c8 = *reinterpret_cast<const float2*>(cks + k + 8);
+      const float* gv = &G[8 * kk];
+      w[kk][0] = pack_w<LO>(__fmul_rn(__fmul_rn(gv[0], r0), c.x),
+                            __fmul_rn(__fmul_rn(gv[1], r0), c.y));
+      w[kk][1] = pack_w<LO>(__fmul_rn(__fmul_rn(gv[2], r1), c.x),
+                            __fmul_rn(__fmul_rn(gv[3], r1), c.y));
+      w[kk][2] = pack_w<LO>(__fmul_rn(__fmul_rn(gv[4], r0), c8.x),
+                            __fmul_rn(__fmul_rn(gv[5], r0), c8.y));
+      w[kk][3] = pack_w<LO>(__fmul_rn(__fmul_rn(gv[6], r1), c8.x),
+                            __fmul_rn(__fmul_rn(gv[7], r1), c8.y));
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 64 * kt + 16 * kk + 2 * tig;
+      const float2 ak = *reinterpret_cast<const float2*>(acs + k);
+      const float2 ak8 = *reinterpret_cast<const float2*>(acs + k + 8);
+      const float2 dk = *reinterpret_cast<const float2*>(dts + k);
+      const float2 dk8 = *reinterpret_cast<const float2*>(dts + k + 8);
+      const float* gv = &G[8 * kk];
+      w[kk][0] = pack_w<LO>(weight(gv[0], q0, k, a0, ak.x, dk.x),
+                            weight(gv[1], q0, k + 1, a0, ak.y, dk.y));
+      w[kk][1] = pack_w<LO>(weight(gv[2], q1, k, a1, ak.x, dk.x),
+                            weight(gv[3], q1, k + 1, a1, ak.y, dk.y));
+      w[kk][2] = pack_w<LO>(weight(gv[4], q0, k + 8, a0, ak8.x, dk8.x),
+                            weight(gv[5], q0, k + 9, a0, ak8.y, dk8.y));
+      w[kk][3] = pack_w<LO>(weight(gv[6], q1, k + 8, a1, ak8.x, dk8.x),
+                            weight(gv[7], q1, k + 9, a1, ak8.y, dk8.y));
+    }
+  }
+}
+
+// The chunk outputs of the group's heads, one after another through the ring,
+// for this warpgroup's query tile.  PAIR: some head of the group takes W and
+// H as bf16 pairs (bit i of pairs; a block-uniform branch chooses the
+// instance, so the blocks where no head does run the code without them).
+template <int NKT, bool TMA, bool PAIR>
+__device__ __forceinline__ void heads(const float (&G)[NKT][32], const OutArgs& a,
+                                      unsigned char* ring, unsigned char* sb, const float* sacs,
+                                      const float* sdt, const float* sck, uint64_t* full,
+                                      uint64_t* empty, uint32_t c_addr, uint32_t b_addr, int z,
+                                      int c, int chunks, int bh0, int ng, int crow,
+                                      unsigned pairs) {
+  constexpr int KEYS = 64 * NKT;
+  const int tid = threadIdx.x, wg = tid / WG;
+  const int warp = (tid / 32) % 4, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int qt = 2 * z + wg;  // this warpgroup's query tile
+  const int q0 = 64 * qt + warp * 16 + g, q1 = q0 + 8;  // this thread's rows
+  for (int i = 0; i < ng; ++i) {
+    const int s = TMA ? i % NST : 0;
+    const bool pair = PAIR && ((pairs >> i) & 1);
+    unsigned char* slot = ring + s * S3_SLOT;
+    if constexpr (TMA) {
+      mbar_wait(&full[s], (i / NST) & 1);
+    } else {
+      sync_threads(2 * WG);  // the previous head's readers of the slot are done
+      stage_tile(slot, S3_X, KEYS, 1, a.x + ((size_t)(bh0 + i) * a.S + crow) * a.P, a.P, a.Q,
+                 a.P, 2 * WG);
+      stage_tile(slot + S3_X, TILE, 64, 2,
+                 a.entering + ((size_t)(bh0 + i) * chunks + c) * (PP * NP), NP, PP, NP, 2 * WG);
+      if (PAIR && pair)
+        stage_tile(sb, TILE, 64, 2,
+                   a.entering_lo + ((size_t)(bh0 + i) * chunks + c) * (PP * NP), NP, PP, NP,
+                   2 * WG);
+      fence_async_shared();
+      sync_threads(2 * WG);
+    }
+    const uint32_t x_addr = smem_u32(slot), h_addr = x_addr + S3_X;
+    const uint32_t lo_addr = b_addr + 2 * s * TILE;
+    const float* acs = sacs + i * QMAX;
+    const float* dts = sdt + i * QMAX;
+    const float* cks = sck + i * QMAX;
+
+    // y = (C H^T) * exp(a_cs[q]), H = hi (+ lo where the pair is taken)
+    float y[32];
+    zero(y);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk)
+      wgmma_ss<0>(y, desc_kmajor<ROWB, 64>(c_addr, 0, kk), desc_kmajor<ROWB, 64>(h_addr, 0, kk),
+                  1);
+    if (PAIR && pair) {
+#pragma unroll
+      for (int kk = 0; kk < NP / 16; ++kk)
+        wgmma_ss<0>(y, desc_kmajor<ROWB, 64>(c_addr, 0, kk),
+                    desc_kmajor<ROWB, 64>(lo_addr, 0, kk), 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(y);
+    const float a0 = acs[q0], a1 = acs[q1];
+    const float e0 = expf(a0), e1 = expf(a1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      y[4 * j] = __fmul_rn(y[4 * j], e0);
+      y[4 * j + 1] = __fmul_rn(y[4 * j + 1], e0);
+      y[4 * j + 2] = __fmul_rn(y[4 * j + 2], e1);
+      y[4 * j + 3] = __fmul_rn(y[4 * j + 3], e1);
+    }
+
+    // y += W x, key tile by key tile, W packed to bf16 as wgmma's A (w_frags);
+    // where the pair is taken, a second pass adds W's lo parts
+#pragma unroll
+    for (int kt = 0; kt < NKT; ++kt) {
+      uint32_t w[4][4];
+      w_frags<false>(w, G[kt], kt, qt, q0, q1, a0, a1, acs, dts, cks, tig);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(y, w[kk], desc_mnmajor<ROWB, 64>(x_addr + kt * TILE, kk), 1);
+      wg_commit();
+      wg_wait<0>();
+    }
+    if (PAIR && pair) {
+#pragma unroll
+      for (int kt = 0; kt < NKT; ++kt) {
+        uint32_t w[4][4];
+        w_frags<true>(w, G[kt], kt, qt, q0, q1, a0, a1, acs, dts, cks, tig);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(y, w[kk], desc_mnmajor<ROWB, 64>(x_addr + kt * TILE, kk), 1);
+        wg_commit();
+        wg_wait<0>();
+      }
+    }
+    hold(y);
+    if constexpr (TMA) {  // the slot is free for the producer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    bf16* yc = a.y + ((size_t)(bh0 + i) * a.S + crow) * a.P;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = 8 * j + 2 * tig;
+      store_pair(yc, q0, p, y[4 * j], y[4 * j + 1], a.Q, a.P);
+      store_pair(yc, q1, p, y[4 * j + 2], y[4 * j + 3], a.Q, a.P);
+    }
   }
 }
 
@@ -398,6 +620,7 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
   uint64_t* cb = reinterpret_cast<uint64_t*>(sck + MAX_GROUP * QMAX);
   uint64_t* full = cb + 1;
   uint64_t* empty = full + NST;
+  uint64_t* gdone = empty + NST;  // the consumers are done with the B tiles
 
   const int tid = threadIdx.x, wg = tid / WG;
   const int chunks = a.S / a.Q;
@@ -413,6 +636,7 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * WG / 32);
     }
+    mbar_init(gdone, 2 * WG / 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -421,6 +645,8 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if constexpr (TMA) {
       if (tid == 2 * WG) {
+        unsigned pairs = 0;  // its loads in flight while C and B are issued
+        for (int i = 0; i < ng; ++i) pairs |= (unsigned)a.pairs[(size_t)(bh0 + i) * chunks + c] << i;
         mbar_expect_tx(cb, (4 + 2 * NKT) * TILE);
         for (int w = 0; w < 2; ++w)
           for (int j = 0; j < 2; ++j)
@@ -428,22 +654,32 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
         for (int kt = 0; kt < NKT; ++kt)
           for (int j = 0; j < 2; ++j)
             tma_load_3d(sb + j * QMAX * ROWB + kt * TILE, tb, cb, 64 * j, crow + 64 * kt, b);
+        bool b_free = false;
         for (int i = 0; i < ng; ++i) {
           const int s = i % NST;
           if (i >= NST) mbar_wait(&empty[s], ((i / NST) & 1) ^ 1);
+          const int pair = (pairs >> i) & 1;
           unsigned char* slot = ring + s * S3_SLOT;
-          mbar_expect_tx(&full[s], (NKT + 2) * TILE);
+          mbar_expect_tx(&full[s], (NKT + 2 + 2 * pair) * TILE);
           for (int kt = 0; kt < NKT; ++kt)
             tma_load_3d(slot + kt * TILE, tx, &full[s], 0, crow + 64 * kt, bh0 + i);
           for (int j = 0; j < 2; ++j)
             tma_load_3d(slot + S3_X + j * TILE, th, &full[s], 64 * j, 0,
                         (bh0 + i) * chunks + c);
+          if (pair) {  // H's lo into the B tiles' place, once G is done with them
+            if (!b_free) mbar_wait(gdone, 0);
+            b_free = true;
+            for (int j = 0; j < 2; ++j)
+              tma_load_3d(sb + (2 * s + j) * TILE, th, &full[s], 64 * j, 0,
+                          a.lo_row + (bh0 + i) * chunks + c);
+          }
         }
       }
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const unsigned pairs = pair_mask(a.pairs, bh0, ng, c, chunks);
 
   // a_cs, dt and exp(a_k1 - a_cs) * dt of the group's heads at the chunk's
   // first KEYS keys (zeros past Q)
@@ -472,7 +708,7 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
   sync_threads(2 * WG);
   if constexpr (TMA) mbar_wait(cb, 0);
 
-  const int warp = (tid / 32) % 4, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int lane = tid & 31;
   const uint32_t c_addr = smem_u32(sc) + 2 * wg * TILE, b_addr = smem_u32(sb);
 
   // G = C B^T for the group's heads: queries q0 (+8), keys 64 kt + 8 j + 2 tig (+1)
@@ -490,117 +726,17 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
   wg_wait<0>();
 #pragma unroll
   for (int kt = 0; kt < NKT; ++kt) hold(G[kt]);
-
-  const int qt = 2 * z + wg;  // this warpgroup's query tile
-  const int q0 = 64 * qt + warp * 16 + g, q1 = q0 + 8;  // this thread's rows
-  for (int i = 0; i < ng; ++i) {
-    const int s = TMA ? i % NST : 0;
-    unsigned char* slot = ring + s * S3_SLOT;
-    if constexpr (TMA) {
-      mbar_wait(&full[s], (i / NST) & 1);
-    } else {
-      sync_threads(2 * WG);  // the previous head's readers of the slot are done
-      stage_tile(slot, S3_X, KEYS, 1, a.x + ((size_t)(bh0 + i) * a.S + crow) * a.P, a.P, a.Q,
-                 a.P, 2 * WG);
-      stage_tile(slot + S3_X, TILE, 64, 2,
-                 a.entering + ((size_t)(bh0 + i) * chunks + c) * (PP * NP), NP, PP, NP, 2 * WG);
-      fence_async_shared();
-      sync_threads(2 * WG);
-    }
-    const uint32_t x_addr = smem_u32(slot), h_addr = x_addr + S3_X;
-    const float* acs = sacs + i * QMAX;
-    const float* dts = sdt + i * QMAX;
-    const float* cks = sck + i * QMAX;
-
-    // y = (C H^T) * exp(a_cs[q])
-    float y[32];
-    zero(y);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < NP / 16; ++kk)
-      wgmma_ss<0>(y, desc_kmajor<ROWB, 64>(c_addr, 0, kk), desc_kmajor<ROWB, 64>(h_addr, 0, kk),
-                  1);
-    wg_commit();
-    wg_wait<0>();
-    hold(y);
-    const float a0 = acs[q0], a1 = acs[q1];
-    const float e0 = expf(a0), e1 = expf(a1);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      y[4 * j] = __fmul_rn(y[4 * j], e0);
-      y[4 * j + 1] = __fmul_rn(y[4 * j + 1], e0);
-      y[4 * j + 2] = __fmul_rn(y[4 * j + 2], e1);
-      y[4 * j + 3] = __fmul_rn(y[4 * j + 3], e1);
-    }
-
-    // y += W x, key tile by key tile, W packed to bf16 as wgmma's A.  Below
-    // the diagonal (kt < qt) every q > k1 >= k, k1 = 64 kt + 63, and L =
-    // exp(a_q - a_k1) exp(a_k1 - a_k), each factor at most 1 where da <= 0
-    // (the header note says what da > 0 gives): two exponentials a row and
-    // one a key (sck) for the tile, none an element.
-    // On the diagonal tile (and the first warpgroup's tile above it, all
-    // zeros) L is the select of one exponential an element.
-#pragma unroll
-    for (int kt = 0; kt < NKT; ++kt) {
-      uint32_t w[4][4];
-      if (kt < qt) {
-        const float ak1 = acs[64 * kt + 63];
-        const float r0 = expf(a0 - ak1), r1 = expf(a1 - ak1);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int k = 64 * kt + 16 * kk + 2 * tig;  // keys k, k + 1, k + 8, k + 9
-          const float2 c = *reinterpret_cast<const float2*>(cks + k);
-          const float2 c8 = *reinterpret_cast<const float2*>(cks + k + 8);
-          const float* gv = &G[kt][8 * kk];
-          w[kk][0] = pack_bf16(__fmul_rn(__fmul_rn(gv[0], r0), c.x),
-                               __fmul_rn(__fmul_rn(gv[1], r0), c.y));
-          w[kk][1] = pack_bf16(__fmul_rn(__fmul_rn(gv[2], r1), c.x),
-                               __fmul_rn(__fmul_rn(gv[3], r1), c.y));
-          w[kk][2] = pack_bf16(__fmul_rn(__fmul_rn(gv[4], r0), c8.x),
-                               __fmul_rn(__fmul_rn(gv[5], r0), c8.y));
-          w[kk][3] = pack_bf16(__fmul_rn(__fmul_rn(gv[6], r1), c8.x),
-                               __fmul_rn(__fmul_rn(gv[7], r1), c8.y));
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int k = 64 * kt + 16 * kk + 2 * tig;
-          const float2 ak = *reinterpret_cast<const float2*>(acs + k);
-          const float2 ak8 = *reinterpret_cast<const float2*>(acs + k + 8);
-          const float2 dk = *reinterpret_cast<const float2*>(dts + k);
-          const float2 dk8 = *reinterpret_cast<const float2*>(dts + k + 8);
-          const float* gv = &G[kt][8 * kk];
-          w[kk][0] = pack_bf16(weight(gv[0], q0, k, a0, ak.x, dk.x),
-                               weight(gv[1], q0, k + 1, a0, ak.y, dk.y));
-          w[kk][1] = pack_bf16(weight(gv[2], q1, k, a1, ak.x, dk.x),
-                               weight(gv[3], q1, k + 1, a1, ak.y, dk.y));
-          w[kk][2] = pack_bf16(weight(gv[4], q0, k + 8, a0, ak8.x, dk8.x),
-                               weight(gv[5], q0, k + 9, a0, ak8.y, dk8.y));
-          w[kk][3] = pack_bf16(weight(gv[6], q1, k + 8, a1, ak8.x, dk8.x),
-                               weight(gv[7], q1, k + 9, a1, ak8.y, dk8.y));
-        }
-      }
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<1>(y, w[kk], desc_mnmajor<ROWB, 64>(x_addr + kt * TILE, kk), 1);
-      wg_commit();
-      wg_wait<0>();
-    }
-    hold(y);
-    if constexpr (TMA) {  // the slot is free for the producer
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
-
-    bf16* yc = a.y + ((size_t)(bh0 + i) * a.S + crow) * a.P;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int p = 8 * j + 2 * tig;
-      store_pair(yc, q0, p, y[4 * j], y[4 * j + 1], a.Q, a.P);
-      store_pair(yc, q1, p, y[4 * j + 2], y[4 * j + 3], a.Q, a.P);
-    }
+  if constexpr (TMA) {  // the B tiles may take H's lo parts
+    __syncwarp();
+    if (lane == 0) mbar_arrive(gdone);
   }
+
+  if (pairs)
+    heads<NKT, TMA, true>(G, a, ring, sb, sacs, sdt, sck, full, empty, c_addr, b_addr, z, c,
+                          chunks, bh0, ng, crow, pairs);
+  else
+    heads<NKT, TMA, false>(G, a, ring, sb, sacs, sdt, sck, full, empty, c_addr, b_addr, z, c,
+                           chunks, bh0, ng, crow, 0);
 }
 
 // Stage 3.  Block (b * chunks + c, head group, pair of query tiles from the
@@ -634,33 +770,39 @@ bool plan_grids(const int* plan, int n, const int (*own)[2], dim3* grids) {
 
 template <bool TMA>
 int launch_bf16(const void* x, const void* dt, const void* da, const void* B, const void* C,
-                void* y, void* state, void* acs, void* states, void* entering, int BH, int S,
-                int P, int N, int nheads, int Q, int group, const dim3* grids, cudaStream_t st) {
+                void* y, void* state, void* acs, void* states, void* entering, void* rising,
+                int BH, int S, int P, int N, int nheads, int Q, int group, const dim3* grids,
+                cudaStream_t st) {
   const int chunks = S / Q, Bb = BH / nheads;
+  const int lo_row = BH * chunks;  // entering's lo tiles follow its hi tiles
+  bf16* entering_lo = static_cast<bf16*>(entering) + (size_t)lo_row * (PP * NP);
+  int* pairs = static_cast<int*>(rising) + lo_row;  // stage 2's, after stage 1's flags
   CUtensorMap tx{}, tb{}, tc{}, th{};
   if (TMA) {
     int err = tensor_map_3d(&tx, x, P, S, BH, 64, 64);
     if (err == 0) err = tensor_map_3d(&tb, B, N, S, Bb, 64, 64);
     if (err == 0) err = tensor_map_3d(&tc, C, N, S, Bb, 64, 64);
-    if (err == 0) err = tensor_map_3d(&th, entering, NP, PP, (uint64_t)BH * chunks, 64, 64);
+    if (err == 0) err = tensor_map_3d(&th, entering, NP, PP, 2 * (uint64_t)lo_row, 64, 64);
     if (err != 0) return err;
   }
   const bf16* xb = static_cast<const bf16*>(x);
   ssd_chunk_state_kernel<TMA><<<grids[0], WG, S1_SMEM, st>>>(
       tx, tb, xb, static_cast<const float*>(dt), static_cast<const float*>(da),
-      static_cast<const bf16*>(B), static_cast<float*>(acs), static_cast<float*>(states), S, P,
-      N, nheads, Q);
+      static_cast<const bf16*>(B), static_cast<float*>(acs), static_cast<float*>(states),
+      static_cast<int*>(rising), S, P, N, nheads, Q);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   ssd_state_pass_kernel<<<grids[1], S2_THREADS, 0, st>>>(
       static_cast<const float*>(states), static_cast<const float*>(acs),
-      static_cast<bf16*>(entering), static_cast<float*>(state), BH, S, P, N, Q);
+      static_cast<const int*>(rising), pairs, static_cast<bf16*>(entering), entering_lo,
+      static_cast<float*>(state), BH, S, P, N, Q);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const OutArgs args{xb, static_cast<const float*>(dt), static_cast<const float*>(acs),
                      static_cast<const bf16*>(B), static_cast<const bf16*>(C),
-                     static_cast<const bf16*>(entering), static_cast<bf16*>(y),
-                     S, P, N, nheads, Q, group};
+                     static_cast<const bf16*>(entering), entering_lo,
+                     pairs, static_cast<bf16*>(y),
+                     S, P, N, nheads, Q, group, lo_row};
   ssd_chunk_out_kernel<TMA><<<grids[2], S3_THREADS, S3_SMEM, st>>>(tx, tb, tc, th, args);
   return (int)cudaGetLastError();
 }
@@ -944,8 +1086,9 @@ int ssd_scan_f32_launch(const void* x, const void* dt, const void* da, const voi
 }
 
 // bfloat16: the three kernels, on the caller's temporaries acs (BH, S) float32,
-// states (BH, S / Q, 64, 128) float32 and entering (BH, S / Q, 64, 128)
-// bfloat16; `group` heads a chunk-output block; tma != 0 when P % 8 == 0,
+// states (BH, S / Q, 64, 128) float32, entering (2, BH, S / Q, 64, 128)
+// bfloat16 (hi, then lo) and rising (2, BH, S / Q) int32 (stage 1's flags,
+// then stage 2's pairs); `group` heads a chunk-output block; tma != 0 when P % 8 == 0,
 // N % 8 == 0 and x, B, C are 16-byte aligned; `plan`, five ints a kernel
 // (grid x, y, z, threads, shared memory), the grids of the caller's plan
 // (kernel.py ssd_plan).  Returns the CUDA error of the launches (0:
@@ -953,8 +1096,8 @@ int ssd_scan_f32_launch(const void* x, const void* dt, const void* da, const voi
 // not the kernels'.
 int ssd_scan_bf16_launch(const void* x, const void* dt, const void* da, const void* B,
                          const void* C, void* y, void* state, void* acs, void* states,
-                         void* entering, int BH, int S, int P, int N, int nheads, int Q,
-                         int group, int tma, const int* plan, void* stream) {
+                         void* entering, void* rising, int BH, int S, int P, int N,
+                         int nheads, int Q, int group, int tma, const int* plan, void* stream) {
   const int own[3][2] = {{WG, S1_SMEM}, {S2_THREADS, 0}, {S3_THREADS, S3_SMEM}};
   dim3 grids[3];
   if (P > PP || N > NP || Q > QMAX || Q <= 0 || S % Q || group < 1 || group > MAX_GROUP ||
@@ -962,10 +1105,10 @@ int ssd_scan_bf16_launch(const void* x, const void* dt, const void* da, const vo
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tma)
-    return launch_bf16<true>(x, dt, da, B, C, y, state, acs, states, entering, BH, S, P, N,
-                             nheads, Q, group, grids, st);
-  return launch_bf16<false>(x, dt, da, B, C, y, state, acs, states, entering, BH, S, P, N,
-                            nheads, Q, group, grids, st);
+    return launch_bf16<true>(x, dt, da, B, C, y, state, acs, states, entering, rising, BH, S,
+                             P, N, nheads, Q, group, grids, st);
+  return launch_bf16<false>(x, dt, da, B, C, y, state, acs, states, entering, rising, BH, S,
+                            P, N, nheads, Q, group, grids, st);
 }
 
 }  // extern "C"

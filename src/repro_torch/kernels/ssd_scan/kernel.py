@@ -113,7 +113,8 @@ def ssd_plan(BH: int, S: int, P: int, N: int, nheads: int, chunk: int, dtype: to
     temporaries = (
         ("acs", (BH, S), torch.float32),
         ("states", (BH, chunks, *pad), torch.float32),
-        ("entering", (BH, chunks, *pad), torch.bfloat16),
+        ("entering", (2, BH, chunks, *pad), torch.bfloat16),  # hi, lo
+        ("rising", (2, BH, chunks), torch.int32),  # stage 1's flags, stage 2's pairs
     )
     return SsdPlan(Q, chunks, g, tma and P % 8 == 0 and N % 8 == 0, stages, temporaries)
 
@@ -133,9 +134,9 @@ def build() -> ctypes.CDLL:
         # x dt da B C y state | BH S P N nheads chunk | plan stream
         lib.ssd_scan_f32_launch.argtypes = [p] * 7 + [i] * 6 + [p, p]
         lib.ssd_scan_bf16_launch.restype = i
-        # x dt da B C y state acs states entering | BH S P N nheads chunk group tma
-        # | plan stream
-        lib.ssd_scan_bf16_launch.argtypes = [p] * 10 + [i] * 8 + [p, p]
+        # x dt da B C y state acs states entering rising | BH S P N nheads chunk
+        # group tma | plan stream
+        lib.ssd_scan_bf16_launch.argtypes = [p] * 11 + [i] * 8 + [p, p]
         _lib = lib
         return lib
 

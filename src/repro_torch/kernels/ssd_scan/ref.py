@@ -82,6 +82,20 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
+def _pair(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a bf16 pair ``hi + lo`` summed in float32: about 16 bits."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def rising_pairs(da: torch.Tensor, Q: int) -> torch.Tensor:
+    """(BH, S / Q) bool: chunks at or after a chunk of their row with some
+    ``da > 0``, where the bfloat16 kernels take W and the entering state as
+    bf16 pairs.  Where da <= 0 (a model's dt > 0, A < 0) there is none."""
+    up = (da.float().reshape(da.shape[0], -1, Q) > 0).any(dim=2)
+    return torch.cummax(up.to(torch.int32), dim=1).values.bool()
+
+
 def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torch.Tensor,
                    C_: torch.Tensor, *, nheads: int, chunk: int, rounded: bool = False):
     """The function of :func:`ssd_scan_ref` in the kernels' three stages.
@@ -95,9 +109,11 @@ def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torc
 
     With ``rounded`` the operands are rounded where the bfloat16 kernels'
     tensor cores take them: the scaled x of stage 1 as a bf16 pair ``hi +
-    lo`` (``hi = bf16(x * s)``, ``lo = bf16(x * s - hi)``), the weights ``G o
-    L o dt`` and the state entering a chunk to bf16; x, B and C enter as they
-    are.  Sums stay float32.  Returns ``(y in x.dtype, final state float32)``.
+    lo`` (``hi = bf16(v)``, ``lo = bf16(v - hi)``); the weights ``G o L o
+    dt`` and the state entering a chunk to bf16, or, in a chunk of a row
+    where a_cs has risen (some ``da > 0`` in it or an earlier chunk:
+    ``rising_pairs``), each as a pair too; x, B and C enter as they are.
+    Sums stay float32.  Returns ``(y in x.dtype, final state float32)``.
     """
     BH, S, P = x.shape
     N = B_.shape[-1]
@@ -115,8 +131,7 @@ def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torc
     scale = torch.exp(a_cs[..., -1:] - a_cs) * dtf  # (BH, nc, Q)
     xs = xf * scale[..., None]
     if rounded:
-        hi = _bf16(xs)
-        xs = hi + _bf16(xs - hi)
+        xs = _pair(xs)
     states = torch.matmul(xs.transpose(2, 3), Bh)  # (BH, nc, P, N)
 
     # 2. state passing
@@ -127,7 +142,8 @@ def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torc
         h = h * torch.exp(a_cs[:, c, -1])[:, None, None] + states[:, c]
     H = torch.stack(entering, dim=1)  # (BH, nc, P, N), the state entering each chunk
     if rounded:
-        H = _bf16(H)
+        pair = rising_pairs(da, Q)[..., None, None]
+        H = torch.where(pair, _pair(H), _bf16(H))
 
     # 3. chunk outputs
     G = torch.matmul(Cb, B_.float().reshape(-1, nc, Q, N).transpose(2, 3))  # (B, nc, Q, Q)
@@ -138,7 +154,7 @@ def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torc
     L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
     W = G * L * dtf[..., None, :]
     if rounded:
-        W = _bf16(W)
+        W = torch.where(pair, _pair(W), _bf16(W))
     Ch = Cb.repeat_interleave(nheads, dim=0)
     y = torch.matmul(W, xf) + torch.matmul(Ch, H.transpose(2, 3)) * torch.exp(a_cs)[..., None]
     return y.reshape(BH, S, P).to(x.dtype), h

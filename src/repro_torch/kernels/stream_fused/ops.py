@@ -3,10 +3,11 @@ the backend dispatcher, and the (opt-in) algebraic folder.
 
 A ``StreamProgram`` is the fusion pass's codegen target: a register file of
 ``(N,)`` token wires, a static op list, and the registers holding each fused
-output port.  ``fused_stream`` runs one on CUDA tensors through the
-hand-written CUDA kernel (``kernel.py``, ``csrc/stream_fused.cu``) and on CPU
-tensors through the plain PyTorch version (``ref.py``) — both compute the
-identical op sequence in the identical float32 order.
+output port.  ``fused_stream`` runs one on CUDA tensors through the CUDA
+kernel generated for that program (``kernel.py``, template
+``csrc/stream_fused.cuh``) and on CPU tensors through the plain PyTorch
+version (``ref.py``) — both compute the identical op sequence in the
+identical float32 order.
 
 ``StreamOp``, ``StreamProgram``, ``block_unit`` and ``fold`` are copies of
 ``repro/kernels/stream_fused/ops.py``.

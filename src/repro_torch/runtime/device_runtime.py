@@ -7,9 +7,10 @@ the partition's ``torch.device``.  By the time this backend runs, the
 middle-end has already legalized the placement, resolved FIFO depths, and
 (by default) fused every static-rate (SDF) sub-region into a single fused
 actor — so the step invokes one ``vector_fire`` per *region*, not one per
-authored actor, and the fused regions launch the hand-written CUDA stream
-kernel (``repro_torch.kernels.stream_fused``) on the card, or run its plain
-PyTorch version on the CPU.
+authored actor, and the fused regions launch the CUDA kernel generated for
+their stream program (``repro_torch.kernels.stream_fused``; built when the
+partition is compiled) on the card, or run its plain PyTorch version on the
+CPU.
 
 Execution model: the partition step processes a *block* of tokens per
 invocation.  Dynamic-rate actors (e.g. Filter) emit a validity mask; tokens
@@ -383,6 +384,15 @@ def compile_partition(
     order = [a for a in module.topo_order() if a in sub]
 
     impls = {a: module.actors[a].impl for a in names}
+    if device.type == "cuda":
+        # each fused region's generated kernel is built (or loaded) here,
+        # off the clock of every run; a failed build raises
+        from repro_torch.kernels.stream_fused.kernel import compile_program
+
+        for a in names:
+            prog_obj = getattr(impls[a], "stream_program", None)
+            if module.actors[a].codegen == "cuda" and prog_obj is not None:
+                compile_program(prog_obj, device)
     vfs = {
         a: (impls[a].vector_fire or default_vector_fire(impls[a]))
         for a in names

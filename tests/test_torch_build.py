@@ -1,7 +1,8 @@
 """The kernel build's library name: a hash of the CUDA source, every local
 header it includes and the flags, so that an edit to a shared header
-(``csrc/hopper.cuh``) never reuses a stale library.  No ``nvcc`` is needed:
-the tag is computed from the files alone."""
+(``csrc/hopper.cuh``, the stream kernels' template ``csrc/stream_fused.cuh``)
+never reuses a stale library.  No ``nvcc`` is needed: the tag is computed
+from the files alone."""
 
 import stat
 import sys
@@ -9,6 +10,8 @@ from pathlib import Path
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import CSRC, local_sources, source_tag
+from repro_torch.kernels.stream_fused import StreamOp, StreamProgram
+from repro_torch.kernels.stream_fused import kernel as stream
 
 FLAGS = ("-O3", "-std=c++17")
 
@@ -51,11 +54,45 @@ def test_local_sources_follow_quoted_includes_once(tmp_path):
 
 def test_port_sources_hash_the_shared_hopper_header():
     """The three tensor-core sources include csrc/hopper.cuh, so its edits
-    rebuild their libraries."""
+    rebuild their libraries; a generated stream kernel includes the
+    template csrc/stream_fused.cuh from the build directory."""
     for name in ("flash_attention.cu", "moe_gmm.cu", "ssd_scan.cu"):
         assert [p.name for p in local_sources(CSRC / name)] == [name, "hopper.cuh"]
-    for name in ("stream_fused.cu", "rmsnorm.cu", "quant.cu"):
+    for name in ("rmsnorm.cu", "quant.cu"):
         assert [p.name for p in local_sources(CSRC / name)] == [name]
+    src = stream.emit(stream.plan(_stream_program(0.25)))
+    path = stream.source_path(src)
+    assert path.parent == build.BUILD_DIR and path.suffix == ".cu"
+    assert f'#include "../{CSRC.name}/stream_fused.cuh"' in src
+    assert (path.parent / "../csrc/stream_fused.cuh").resolve() == stream.TEMPLATE
+
+
+def _stream_program(c: float):
+    return StreamProgram(1, 3, (StreamOp("const", (0,), 1, (0.0,)),
+                                StreamOp("axpy", (0, 1), 2, (c,))), (2,))
+
+
+def test_generated_stream_tag_follows_the_template_and_the_program(tmp_path):
+    """The library of a generated stream kernel is named by the generated
+    source, the template header and the flags: the same program gives the
+    same name, another program or an edited template another."""
+    (tmp_path / "build").mkdir()
+    (tmp_path / "csrc").mkdir()
+    header = tmp_path / "csrc" / "stream_fused.cuh"
+    header.write_text(stream.TEMPLATE.read_text())
+
+    def tag(program) -> str:
+        src = stream.emit(stream.plan(program))
+        gen = tmp_path / "build" / stream.source_path(src).name
+        gen.write_text(src)
+        assert [p.name for p in local_sources(gen)] == [gen.name, "stream_fused.cuh"]
+        return source_tag(gen, stream.NVCC_FLAGS)
+
+    before = tag(_stream_program(0.25))
+    assert tag(_stream_program(0.25)) == before  # another object, the same program
+    assert tag(_stream_program(0.5)) != before
+    header.write_text(header.read_text() + "// an edit\n")
+    assert tag(_stream_program(0.25)) != before
 
 
 def test_build_library_renames_report_and_library_into_place(tmp_path, monkeypatch):

@@ -11,6 +11,11 @@ package, before the card sees it.
   of what a state update whose scaled operand is rounded wholly to bf16 uses
   (nearly half at this shape): the bf16 pair keeps the state update's
   operand to about 16 bits.
+* Where da > 0 (every second head of ``chip_smoke.py``'s ``SSD_RISING``
+  shape, the state and y growing with a_cs), the kernels take W and the
+  entering state as bf16 pairs: the rounded stages stay within the y
+  tolerance of the JAX kernel and of the JAX ``ssd_ref``, where W and H
+  rounded wholly to bf16 (the control) exceed it.
 * ``kernel.ssd_plan``, whose grids are the ones the kernels are launched
   with: every stage's grid covers each (row, head, chunk) exactly once,
   every block fits the card's shared memory, and the head group follows the
@@ -26,8 +31,8 @@ import torch
 
 from repro.kernels.ssd_scan.kernel import ssd_scan_fwd as jssd_scan_fwd
 from repro.kernels.ssd_scan.ref import ssd_ref as jssd_ref
-from repro_torch.kernels.ssd_scan import kernel
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref, ssd_staged_ref
+from repro_torch.kernels.ssd_scan import kernel, ref
+from repro_torch.kernels.ssd_scan.ref import rising_pairs, ssd_scan_ref, ssd_staged_ref
 
 SHAPES = [(2, 256, 4, 32, 16, 64), (1, 128, 2, 64, 128, 32), (2, 64, 3, 16, 8, 64)]
 BF16_SHAPE = (1, 1024, 8, 64, 128, 256)
@@ -106,6 +111,55 @@ def test_rounded_stages_keep_the_state_within_half_its_tolerance():
     assert state_share < _share(control, np.asarray(jst), tol_s) / 10
 
 
+RISING_SHAPE = (2, 512, 4, 64, 128, 256)  # chip_smoke.py SSD_RISING
+
+
+def _rising_inputs(seed):
+    """``_inputs`` at ``SSD_RISING``'s shape with ``chip_smoke.py`` phase 6's
+    change: every second head's A times -0.05, so its da > 0."""
+    B, S, nh, P, N, _ = RISING_SHAPE
+    xf, dtf, daf, B_, C_ = _inputs(B, S, nh, P, N, seed)
+    odd = np.tile(np.arange(nh) % 2 == 1, B)
+    daf = np.where(odd[:, None], daf * np.float32(-0.05), daf).astype(np.float32)
+    return xf, dtf, daf, B_, C_
+
+
+@pytest.mark.parametrize("pairs", [True, False], ids=["pairs", "control_wholly_bf16"])
+def test_rising_chunks_take_bf16_pairs_within_the_y_tolerance(pairs, monkeypatch):
+    """The control takes no pair anywhere: W and H rounded wholly to bf16,
+    as the kernels did before they took the pairs."""
+    if not pairs:
+        monkeypatch.setattr(ref, "rising_pairs",
+                            lambda da, Q: torch.zeros((da.shape[0], da.shape[1] // Q), dtype=bool))
+    B, S, nh, P, N, chunk = RISING_SHAPE
+    xf, dtf, daf, B_, C_ = _rising_inputs(300)
+    xb = torch.from_numpy(xf).bfloat16()
+    Bb, Cb = torch.from_numpy(B_).bfloat16(), torch.from_numpy(C_).bfloat16()
+    dt, da = torch.from_numpy(dtf), torch.from_numpy(daf)
+    y, st = ssd_staged_ref(xb, dt, da, Bb, Cb, nheads=nh, chunk=chunk, rounded=True)
+    j = (jnp.asarray(xb.float().numpy(), jnp.bfloat16), jnp.asarray(dtf), jnp.asarray(daf),
+         jnp.asarray(Bb.float().numpy(), jnp.bfloat16),
+         jnp.asarray(Cb.float().numpy(), jnp.bfloat16))
+    jy, jst = jssd_scan_fwd(*j, nheads=nh, chunk=chunk, interpret=True)
+    ry, rst = jssd_ref(*j, nheads=nh)
+    tol_y, tol_s = SSD_TOL
+    assert float(np.abs(np.asarray(jy, np.float32)).max()) > 50  # y grows with a_cs
+    shares = [_share(y, np.asarray(w, np.float32), tol_y) for w in (jy, ry)]
+    if pairs:
+        assert max(shares) <= 1.0
+        assert max(_share(st, np.asarray(w), tol_s) for w in (jst, rst)) <= 1.0
+    else:  # the control: the test would have shown the fault
+        assert min(shares) > 1.0
+
+
+def test_rising_pairs_start_at_the_first_chunk_with_some_da_above_zero():
+    da = torch.full((3, 8), -0.1)
+    da[1, 5] = 0.2  # row 1: chunk 2 of four 2-token chunks rises
+    da[2, 0] = 1e-30
+    got = rising_pairs(da, 2)
+    assert got.tolist() == [[False] * 4, [False, False, True, True], [True] * 4]
+
+
 PLAN_SHAPES = [
     # (B, S, nh, P, N, chunk): mamba2-130m's prefill, one prompt, a short
     # prompt, ragged P and N, no TMA with Q % 64 != 0, 25 heads
@@ -152,7 +206,8 @@ def test_plan_covers_every_row_head_and_chunk_once(B, S, nh, P, N, chunk):
     shapes = {name: (shape, dtype) for name, shape, dtype in plan.temporaries}
     assert shapes["acs"] == ((BH, S), torch.float32)
     assert shapes["states"] == ((BH, chunks, 64, 128), torch.float32)
-    assert shapes["entering"] == ((BH, chunks, 64, 128), torch.bfloat16)
+    assert shapes["entering"] == ((2, BH, chunks, 64, 128), torch.bfloat16)  # hi, lo
+    assert shapes["rising"] == ((2, BH, chunks), torch.int32)
 
 
 def test_plan_picks_the_largest_head_group_that_fills_the_card():
@@ -166,10 +221,10 @@ def test_plan_picks_the_largest_head_group_that_fills_the_card():
     assert fewer.head_group == 6 and np.prod(fewer.stages[2].grid) == 64
     small = kernel.ssd_plan(6, 192, 40, 24, 3, 64, torch.bfloat16, SMS)
     assert small.head_group == 1  # too few blocks either way: the most
-    # temporaries of the path: 50.3 MB + 25.2 MB + 1.6 MB, under 2 x 50 MB
-    nbytes = sum(np.prod(shape) * (4 if dtype == torch.float32 else 2)
-                 for _, shape, dtype in path.temporaries)
-    assert nbytes <= 2 * 50.4e6
+    # temporaries of the path: chunk states 50.3 MB, entering states' hi and
+    # lo 50.3 MB (lo written only in rows where a_cs rises), a_cs 1.6 MB
+    nbytes = sum(np.prod(shape) * dtype.itemsize for _, shape, dtype in path.temporaries)
+    assert nbytes <= 102.25e6
 
 
 def test_float32_plan_is_one_kernel_a_row():

@@ -14,10 +14,13 @@ compiles the interpreted kernel body as one fused loop and contracts
 ``a + c*x`` into an FMA, so it is not bitwise even to the JAX reference;
 compare-only programs (Bitonic8, ZigZag) stay bitwise.
 
-The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it to
-the plain version bitwise there); here its bytecode lowering is run through a
-numpy emulation of the kernel's interpreter, and its wrapper's input checks
-are exercised.
+The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
+them to the plain version bitwise there).  Here the generator is checked
+before the card sees it: its plan (op order, matmul8's lane order, perm's
+staging tables) run by a plain executor is held bitwise to the plain
+version, with NaN, +-0 and +-inf seeded, and to the JAX reference; the
+emitted source has one statement per op and every parameter as its float32
+bit pattern; the launch shape; and the wrapper's input checks.
 """
 
 import jax.numpy as jnp
@@ -130,82 +133,172 @@ def test_ref_matches_jax_ref_and_pallas(name, shape):
 
 
 # ---------------------------------------------------------------------------
-# The kernel's bytecode, run through a numpy emulation of its interpreter
+# The generator: its plan run by a plain executor, and the source it emits
 # ---------------------------------------------------------------------------
 
 
-def _emulate(code, xs):
-    """What ``stream_fused_kernel`` computes, one tile covering all tokens
-    (tiles are independent: each is a whole number of block units).
-    Elementwise ops read every position before writing it, as each thread
-    does for its own positions; cross-token ops read everything before
-    writing, as the barriers around them enforce."""
-    sm = np.zeros((code.n_slots, xs[0].size), np.float32)
-    for s, x in zip(code.in_slots, xs):
-        sm[s] = x.reshape(-1)
-    for kind, a, b, o, off, aux in code.ops.tolist():
-        x, y, p = sm[a], sm[b], code.params[off:]
-        sm[o] = _emulate_op(kind, x, y, p, code.perm_idx[off:off + aux], aux)
-    return [sm[s].reshape(xs[0].shape).copy() for s in code.out_slots]
+def _f32(bits) -> np.float32:
+    return np.uint32(bits).view(np.float32)
 
 
-@np.errstate(invalid="ignore")
-def _emulate_op(kind, x, y, p, idx, aux):
-    if kind == 0:  # affine
-        v = x.copy()
-        if aux & 1:
-            v = v + p[0]
-        if aux & 2:
-            v = v * p[1]
-        if aux & 4:
-            v = v + p[2]
-    elif kind == 1:  # clip
-        v = np.where(np.isnan(x), x, np.minimum(np.maximum(x, p[0]), p[1]))
-    elif kind == 2:  # matmul8, fixed left-to-right order
-        blk = x.reshape(-1, 8)
-        v = blk[:, 0:1] * p[0:8]
-        for i in range(1, 8):
-            v = v + blk[:, i:i + 1] * p[8 * i:8 * i + 8]
-        v = v.reshape(-1)
-    elif kind == 3:  # axpy: y + c*x
-        v = y + p[0] * x
-    elif kind == 4:
-        v = np.full_like(x, p[0])
-    elif kind == 5:
-        v = np.minimum(x, y)
-    elif kind == 6:
-        v = np.maximum(x, y)
-    elif kind == 7:
-        v = x.reshape(-1, aux)[:, idx].reshape(-1)
-    return v.astype(np.float32)
+@np.errstate(invalid="ignore", over="ignore")
+def _ieee_min(a, b, lo: bool):
+    """torch.minimum / maximum on the card: NaN from either side wins (a's
+    first), -0 < +0 on a tie of signed zeros."""
+    pick = np.minimum(a, b) if lo else np.maximum(a, b)
+    tie = np.where(np.signbit(a) == lo, a, b)
+    out = np.where(a == b, tie, pick)
+    return np.where(np.isnan(b), b, np.where(np.isnan(a), a, out)).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["demo", *NETS])
-def test_bytecode_emulation_matches_ref_bitwise(name):
-    _, tp = _programs(name)
-    code = kernel.lower(tp)
-    xs = _inputs(tp, (4, 64))
-    xs[0][0, :4] = [np.nan, 0.0, -0.0, np.inf]
-    want = [t.numpy() for t in fused_stream_ref([torch.from_numpy(x) for x in xs], tp)]
-    got = _emulate(code, xs)
-    for g, w in zip(got, want):
+@np.errstate(invalid="ignore", over="ignore")
+def _execute(pl, xs):
+    """What the generated kernel computes, step by step in the plan's order:
+    each local a float32 wire, padded with zeros to whole staging scopes as
+    the kernel's last block computes on zeros; matmul8 in the lanes' order
+    (each lane's 4 outputs from its own 4 tokens and its partner's, the
+    coefficients picked by its parity, 8 terms left to right); perm as the
+    gather the plan's table gives over each staging scope."""
+    shape, n = xs[0].shape, xs[0].size
+    span = max(pl.span, 8)
+    pad = -n % span
+    env = {f"x{i}": np.concatenate([x.reshape(-1), np.zeros(pad, np.float32)])
+           for i, x in enumerate(xs)}
+    for s in pl.steps:
+        a = [env[i] for i in s.ins]
+        if s.kind == "affine":
+            v = a[0]
+            for part, b in zip(s.parts, s.bits):
+                v = v + _f32(b) if part == "add" else v * _f32(b)
+        elif s.kind == "clip":
+            lo, hi = _f32(s.bits[0]), _f32(s.bits[1])
+            v = np.where(np.isnan(a[0]), a[0], np.minimum(np.maximum(a[0], lo), hi))
+        elif s.kind == "axpy":
+            v = a[1] + _f32(s.bits[0]) * a[0]
+        elif s.kind == "const":
+            v = np.full_like(a[0], _f32(s.bits[0]))
+        elif s.kind in ("min2", "max2"):
+            v = _ieee_min(a[0], a[1], s.kind == "min2")
+        elif s.kind == "matmul8":
+            B = np.asarray(s.bits, np.uint32).view(np.float32).reshape(8, 8)
+            lanes = a[0].reshape(-1, 2, 4)
+            v = np.empty_like(lanes)
+            for odd in (0, 1):
+                own, partner = lanes[:, odd], lanes[:, 1 - odd]
+                blk = np.concatenate([partner, own] if odd else [own, partner], axis=1)
+                coef = B[:, 4 * odd:4 * odd + 4]
+                y = blk[:, 0:1] * coef[0]
+                for i in range(1, 8):
+                    y = y + blk[:, i:i + 1] * coef[i]
+                v[:, odd] = y
+            v = v.reshape(-1)
+        else:  # perm
+            v = a[0].reshape(-1, pl.span)[:, list(s.table)].reshape(-1)
+        env[s.out] = v.astype(np.float32)
+    return [env[o][:n].reshape(shape) for o in pl.outputs]
+
+
+def _same_bits(got, want):
+    """Bitwise at every non-NaN position, NaN at the same ones (a NaN made
+    by arithmetic has the platform's own bits, as on the card)."""
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape and g.dtype == np.float32
         assert np.array_equal(np.isnan(g), np.isnan(w))
         ok = ~np.isnan(w)
-        np.testing.assert_array_equal(g.view(np.int32)[ok], w.view(np.int32)[ok])
+        np.testing.assert_array_equal(g.view(np.uint32)[ok], w.view(np.uint32)[ok])
+
+
+def _seeded(prog, shape, seed=1):
+    xs = _inputs(prog, shape, seed)
+    for x in xs:
+        x.reshape(-1)[:6] = [np.nan, 0.0, -0.0, np.inf, -np.inf, -0.0]
+        x.reshape(-1)[-3:] = [0.0, -0.0, np.nan]
+    return xs
 
 
 @pytest.mark.parametrize("name", ["demo", *NETS])
-def test_bytecode_slots_by_liveness(name):
+def test_plan_executor_matches_ref_bitwise(name):
+    """(3, 64) wires: 192 tokens, one whole warp scope and half of the next."""
+    jp, tp = _programs(name)
+    xs = _seeded(tp, (3, 64))
+    got = _execute(kernel.plan(tp), xs)
+    want = [t.numpy() for t in fused_stream_ref([torch.from_numpy(x) for x in xs], tp)]
+    _same_bits(got, want)
+    if not _has(tp, {"min2", "max2"}):  # jnp's NaN payload and ties are its own
+        _check(got, jref([jnp.asarray(x) for x in xs], jp), _has(tp, {"matmul8"}))
+
+
+def _literal_program():
+    """Constants a decimal literal would not keep: -0.0, NaN, a float32
+    subnormal, a float32 rounding of a double; affine parts that are
+    identities (skipped) and one that is not; and a perm whose P (24) does not
+    divide a warp's 128 tokens, so its staging scope is the block's."""
+    idx = np.random.default_rng(3).permutation(24)
+    ops = (
+        StreamOp("const", (0,), 1, (-0.0,)),
+        StreamOp("const", (0,), 2, (float("nan"),)),
+        StreamOp("affine", (0,), 3, (0.0, 1e-40, 0.0)),
+        StreamOp("axpy", (3, 1), 4, (0.1,)),
+        StreamOp("max2", (4, 1), 5),
+        StreamOp("min2", (2, 5), 6),
+        StreamOp("affine", (0,), 7, (-0.0, 1.0, 0.0)),
+        StreamOp("perm", (5,), 8, (idx,)),
+        StreamOp("matmul8", (8,), 9, (np.eye(8, dtype=np.float32)[::-1].copy(),)),
+    )
+    return StreamProgram(n_inputs=1, n_regs=10, ops=ops, outputs=(1, 6, 7, 9))
+
+
+def test_emitted_literals_are_exact_bit_patterns_and_block_scope_perm():
+    prog = _literal_program()
+    pl = kernel.plan(prog)
+    assert pl.block_scope and pl.span == 384 and pl.threads == 96 and pl.unit == 24
+    src = kernel.emit(pl)
+    for bits in (0x80000000, 0x7FC00000, int(np.float32(1e-40).view(np.uint32)),
+                 int(np.float32(0.1).view(np.uint32))):
+        assert f"f32(0x{bits:08x}u)" in src
+    assert "const W v6 = x0;" in src  # an affine of identity parts only
+    assert "perm<true>(" in src and "psrc0[96]" in src
+    xs = _seeded(prog, (2, 24 * 20))  # 960 tokens: two and a half block scopes
+    got = _execute(pl, xs)
+    want = [t.numpy() for t in fused_stream_ref([torch.from_numpy(x) for x in xs], prog)]
+    _same_bits(got, want)
+    assert (got[0].view(np.uint32) == 0x80000000).all()  # const -0.0, kept
+    assert (got[0].view(np.uint32) == want[0].view(np.uint32)).all()
+
+
+@pytest.mark.parametrize("name", ["demo", *NETS])
+def test_emitted_source_has_one_statement_per_op(name):
     _, tp = _programs(name)
-    code = kernel.lower(tp)
-    # cross-token ops never write one of their own input slots
-    for kind, a, _b, o, _off, _aux in code.ops.tolist():
-        if kind in (2, 7):
-            assert o != a
-    assert code.tile % block_unit(tp) == 0
-    assert code.n_slots * code.tile * 4 <= kernel.MAX_SMEM
-    bound = {"demo": 4, "FIR32": 4, "Bitonic8": 16, "IDCT8": 2, "ZigZag": 2}[name]
-    assert code.n_slots <= bound < tp.n_regs
+    pl = kernel.plan(tp)
+    src = kernel.emit(pl)
+    body = [ln.strip() for ln in src.splitlines() if ln.strip().startswith("const W v")]
+    assert len(body) == len(tp.ops) == len(pl.steps)
+    for k, (line, step, op) in enumerate(zip(body, pl.steps, tp.ops, strict=True)):
+        assert line.startswith(f"const W v{k} = ") and line.endswith(f"// {op.kind}")
+        for b in step.bits:  # every parameter as its bit pattern, in the op's statement
+            assert f"f32(0x{b:08x}u)" in line
+        for name_in in step.ins if step.kind != "const" else ():  # const: shape only
+            assert name_in in line
+    assert len(pl.outputs) == len(tp.outputs)
+    assert src.count("out[") == len(tp.outputs)
+    assert ("perm<false>" in src) == (name == "ZigZag")  # P = 64 stages a warp's tokens
+    assert kernel.emit(kernel.plan(_programs(name)[1])) == src  # a pure function
+
+
+def test_launch_shape_fills_the_card_and_keeps_loads_in_flight():
+    _, tp = _programs("FIR32")
+    pl = kernel.plan(tp)
+    assert pl.k_big == 4
+    k, threads, blocks = kernel.launch_shape(pl, 16384, 132)
+    assert (k, threads, blocks) == (1, 32, 128)  # every token a thread, a block an SM
+    k, threads, blocks = kernel.launch_shape(pl, 1 << 22, 132)
+    assert (k, threads) == (4, 256) and blocks * threads * 4 * k == 1 << 22
+    assert kernel.launch_shape(pl, 1 << 22, 132, aligned=False)[0] == 1
+    assert kernel.launch_shape(pl, 16384, 64)[2] >= 64
+    _, bt = _programs("Bitonic8")
+    assert kernel.plan(bt).k_big == 1  # 8 input wires: 32 floats a thread already
+    lit = kernel.plan(_literal_program())
+    assert kernel.launch_shape(lit, 960, 132)[1:] == (96, 3)
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
