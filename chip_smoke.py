@@ -21,15 +21,19 @@ Phases, one line or more each:
              32*4*4096 (one serve round of 32 lanes) and N = 256*4*4096 (each
              rounded down to the program's block unit), inputs seeded with
              NaN, +-0 and +-inf, on wires off a 16-byte boundary (scalar
-             loads), and on +-0 ties through min2 / max2; kernel and plain device times
+             loads), on lane-major (128, block) stacks as a batched serve
+             round hands them (32 lanes of 4 chunks at phase 13's block), and
+             on +-0 ties through min2 / max2; kernel and plain device times
              (CUDA-graph replay) beside the least time the card could take
              and an empty kernel's time on the same grid (the launch floor).
 3. e2e     — the main path: ``repro_torch.compile(net, backend="device",
              block=4096).run()`` on the five Table-I networks at the
              benchmark sizes, with the kernel's launch count set to 0 just
-             before and read just after (exactly TopFilter 0, FIR32 1,
-             Bitonic8 2, IDCT8 2, ZigZag 2) and no kernel build or load
-             inside ``RunReport.seconds``; then the checks against the host
+             before and read just after (exactly one launch of each fused
+             region per PLink launch, its megastep being flat: TopFilter,
+             which has none, 0; how often PLink launches follows the host's
+             timing) and no kernel build or load inside
+             ``RunReport.seconds``; then the checks against the host
              backend and the port's bitwise invariants (fused == unfused,
              megastep == per-iteration, 2 partitions == 1), and a second,
              instrumented run per network for the boundary breakdown.
@@ -148,6 +152,41 @@ Phases, one line or more each:
              grads under 0.01); ms per round, the kernel's share and the
              idle share of a profiled window; and ``all_reduce_int8`` over
              a one-rank NCCL group against the round trip, bitwise.
+12. explore — the profile-guided partitioner on the five Table-I networks at
+             ``benchmarks/table2_dse.py``'s sizes (block 2048, links over 256,
+             1024 and 4096 tokens): ``profile()`` on the card, then
+             ``explore(thread_counts=(1, 2, 3), accel_options=(False, True))``;
+             every design point's predicted seconds and hw actors; the best
+             point, the best point that uses the device and the all-device
+             corner (priced by the same cost model) run through
+             ``repartition(xcf).run()``, predicted against measured seconds,
+             outputs against the host backend (bitwise on TopFilter, Bitonic8
+             and ZigZag), each run launching the stream kernel exactly when
+             its placement has a fused region and the corner of every fused
+             network launching it, and no kernel build inside a run.  Points
+             whose device part feeds itself through the host (PLink's
+             lockstep staging would stall there) are printed, and compiling
+             each must raise; where that leaves no point on the device, the
+             corner runs alone.  IDCT8 over 0-2 accelerator partitions of at most 2
+             actors, on the live profile and on a pinned one: the
+             2-partition placement against 1 partition, bitwise.
+             ``measure_device_link()``'s latency and bandwidth.
+13. serve   — StreamServe on FIR32 at block 1024
+             (``benchmarks/server_throughput.py``): 1-32 sessions splitting
+             262144 tokens, served continuously (``max_batch=32``) and one
+             launch per session; every session bitwise its isolated
+             ``run()``; the stream kernel's launches exactly one per round
+             (the partition's one fused program) whatever the lanes; tokens/s,
+             TTFO and inter-block p50/p99; no server meets a fault or
+             degrades to the host, and each runs rounds on the card; a
+             mixed partition (Bitonic8's fused {ce0, ce4} beside an unfused
+             ce2) served to 4 sessions, one launch a round, bitwise; the
+             device's idle share over a
+             profiled stretch; 1000 sessions of 256 tokens plus a hog of
+             64x256 split at admission (small sessions' p95 TTFO); a kill
+             mid-stream with periodic checkpoints and ``StreamServer.recover``,
+             bitwise; and one ``OnlineRepartitioner`` move of TopFilter from
+             the host onto the card mid-stream, bitwise.
 
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels (each with its design); the last line is
@@ -180,7 +219,6 @@ REPS = {"main": 200, "serve": 40, "wide": 10}
 SIZES = {"TopFilter": 40000, "FIR32": 8000, "Bitonic8": 1500, "IDCT8": 1500, "ZigZag": 200}
 EXACT = {"TopFilter", "Bitonic8", "ZigZag"}
 FUSED_NETS = ("FIR32", "Bitonic8", "IDCT8", "ZigZag")
-EXPECTED_LAUNCHES = {"TopFilter": 0, "FIR32": 1, "Bitonic8": 2, "IDCT8": 2, "ZigZag": 2}
 BLOCK = 4096
 
 failures: list = []
@@ -408,6 +446,16 @@ def phase_kernel(programs, ties) -> dict:
         check(same and xs[0].data_ptr() % 16 == 4,
               f"kernel != plain version bitwise on unaligned wires: {name}")
     print(f"  unaligned wires (scalar loads): bitwise for {list(programs)}", flush=True)
+    # lane-major stacks, as a batched serve round hands them: 32 lanes of 4
+    # chunks, one (128, block) wire a port, block a multiple of the unit
+    for seed, (name, prog) in enumerate(programs.items()):
+        block = SERVE_BLOCK - SERVE_BLOCK % kernel.plan(prog).unit
+        xs = [x.view(128, block) for x in seeded_inputs(prog, 128 * block, seed)]
+        got = kernel.fused_stream_cuda(xs, prog)
+        same = all(g.shape == (128, block) and compare(g, w)[0]
+                   for g, w in zip(got, fused_stream_ref(xs, prog)))
+        check(same, f"kernel != plain version bitwise on a (128, {block}) lane stack: {name}")
+    print(f"  lane-major (128, block) stacks: bitwise for {list(programs)}", flush=True)
     # +-0 ties through min2/max2: what the card does, held bitwise
     a = torch.tensor([0.0, -0.0] * 4, device="cuda")
     b = torch.tensor([-0.0, 0.0] * 4, device="cuda")
@@ -430,10 +478,14 @@ def phase_kernel(programs, ties) -> dict:
     return rows
 
 
+def build_net(nets, name: str, size: int):
+    return nets[name](n=size) if name == "FIR32" else nets[name](size)
+
+
 def run_net(nets, name, **kw):
     import repro_torch
 
-    net, got = nets[name](n=SIZES[name]) if name == "FIR32" else nets[name](SIZES[name])
+    net, got = build_net(nets, name, SIZES[name])
     prog = repro_torch.compile(net, **kw)
     report = prog.run()
     return list(got), report, prog
@@ -464,7 +516,12 @@ def phase_e2e(nets) -> dict:
     print(f"  kernel launches on the main path: {launches}", flush=True)
     check(len(loads) == len(FUSED_NETS), f"{len(loads)} programs compiled, not one a network")
     print(f"  programs compiled with the partitions (off the run's clock): {loads}", flush=True)
-    check(launches == EXPECTED_LAUNCHES, f"launches {launches} != {EXPECTED_LAUNCHES}")
+    for name, (out, rep, prog) in main.items():
+        dp = prog.device_program()
+        per_launch = fused_regions(prog) * (1 if dp.flat_megastep else dp.megastep_k)
+        check(launches[name] == rep.plink_launches * per_launch,
+              f"{name}: {launches[name]} stream-kernel launches for {rep.plink_launches} "
+              f"PLink launches of {fused_regions(prog)} fused regions")
 
     for name, (out, rep, prog) in main.items():
         devs = {str(p.device) for p in prog.device_programs().values()}
@@ -2078,6 +2135,459 @@ def phase_compress() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the profile-guided partitioner (profile, MILP, explore)
+# ---------------------------------------------------------------------------
+
+# ``benchmarks/table2_dse.py``'s sizes, block and link sweep
+DSE_SIZES = {"TopFilter": 20000, "FIR32": 4000, "Bitonic8": 800, "IDCT8": 800, "ZigZag": 100}
+DSE_BLOCK = 2048
+DSE_BANDWIDTH = (256, 1024, 4096)
+
+
+def timed_run(prog, got):
+    """One ``run()``: outputs, report, launches of the stream kernel, and the
+    programs it compiled (each must end before the run's clock began)."""
+    from repro_torch.kernels.stream_fused import kernel
+
+    launches, built = kernel.LAUNCHES, len(kernel.BUILDS)
+    rep = prog.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    builds = [dict(library=lib, seconds=t1 - t0, before_run_s=t_end - rep.seconds - t1)
+              for t0, t1, lib in kernel.BUILDS[built:]]
+    return list(got), rep, kernel.LAUNCHES - launches, builds
+
+
+def fused_regions(prog) -> int:
+    """Fused stream regions (one generated kernel each) in a placement."""
+    return sum(1 for a in prog.module.actors.values() if a.is_fused and a.codegen == "cuda")
+
+
+def pinned_idct8_profile(graph):
+    """IDCT8's profile with the device far cheaper than the host, so the
+    MILP's 2-partition point holds all three device actors whatever the
+    host's load (the CPU tests pin the same profile)."""
+    from repro_torch.core.cost_model import NetworkProfile
+
+    prof = NetworkProfile()
+    for a, actor in graph.actors.items():
+        prof.exec_sw[a] = 1e-2
+        if actor.device_ok:
+            prof.exec_hw[a] = 1e-5
+    for ch in graph.channels:
+        prof.tokens[ch.key] = 128
+        prof.buffers[ch.key] = 4096
+    prof.n_cores = 4
+    return prof
+
+
+def runnable(graph, point) -> bool:
+    """No hw partition of ``point`` feeds itself through actors off it (the
+    port refuses such a placement: it would stall PLink)."""
+    from repro_torch.runtime.device_runtime import feeds_itself
+
+    asg = point.solution.assignment
+    return not any(feeds_itself(graph.channels, [a for a, p in asg.items() if p == pid])
+                   for pid in point.accel_ids)
+
+
+def phase_explore(nets, card: str) -> dict:
+    import repro_torch
+    from repro_torch.core.cost_model import evaluate
+    from repro_torch.core.partitioner import best_point
+    from repro_torch.core.profiler import measure_device_link
+    from repro_torch.frontend.dsl import FrontendError
+    from repro_torch.frontend.program import synthesize_xcf
+
+    from repro_torch.kernels.stream_fused import kernel
+
+    print("phase 12: the profile-guided partitioner (profile, MILP, explore)", flush=True)
+    kernel.LAUNCHES = 0  # the count covers this phase's runs only
+    rows, launches = {}, {}
+    for name, size in DSE_SIZES.items():
+        net, got = build_net(nets, name, size)
+        prog = repro_torch.compile(net, block=DSE_BLOCK)
+        t0 = time.perf_counter()
+        prof = prog.profile(block=DSE_BLOCK, bandwidth_sizes=DSE_BANDWIDTH)
+        profile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        points = prog.explore(prof, thread_counts=(1, 2, 3), accel_options=(False, True))
+        explore_s = time.perf_counter() - t0
+        check(bool(points), f"explore {name}: no design points")
+        for p in points:
+            print(f"  {name}: threads {p.n_threads} accel {p.n_accels}: predicted "
+                  f"{p.predicted:.6g} s, hw actors {p.hw_actors()}"
+                  f"{'' if runnable(prog.graph, p) else ' (feeds itself through the host)'}",
+                  flush=True)
+        stalls = [p for p in points if not runnable(prog.graph, p)]
+        points = [p for p in points if runnable(prog.graph, p)]
+        for p in stalls:
+            try:
+                prog.repartition(xcf=p.xcf)
+                refused = False
+            except FrontendError:
+                refused = True
+            check(refused, f"explore {name}: a self-feeding placement compiled")
+        dev_points = [p for p in points if p.hw_actors()]
+        if not dev_points:
+            print(f"  {name}: every design point that uses the device feeds itself through "
+                  f"the host; the all-device corner runs in its place", flush=True)
+        host, _rep, _n, _b = timed_run(prog.repartition(backend="host"), got)
+        row = dict(network=name, size=size, profile_s=profile_s, explore_s=explore_s,
+                   points=len(points) + len(stalls), feeding_itself=len(stalls),
+                   exec_hw={a: prof.exec_hw[a] for a in sorted(prof.exec_hw)},
+                   exec_sw_total=sum(prof.exec_sw.values()))
+        # the MILP's best point, its best point on the device, and the
+        # all-device corner priced by the same cost model
+        corner = synthesize_xcf(prog.graph, "device")
+        best = [("best", best_point(points))]
+        best += [("best_device", best_point(dev_points))] if dev_points else []
+        runs = [(tag, p.xcf, p.predicted, p.n_threads, p.hw_actors()) for tag, p in best]
+        runs.append(("all_device", corner,
+                     evaluate(prog.graph, corner.assignment(), prof)["T_exec"], 1,
+                     sorted(a for a, pid in corner.assignment().items() if pid == "accel")))
+        for tag, xcf, predicted, threads, hw in runs:
+            placed = prog.repartition(xcf=xcf)
+            out, rep, n, builds = timed_run(placed, got)
+            regions = fused_regions(placed)
+            row[tag] = dict(threads=threads, hw_actors=hw, predicted_s=predicted,
+                            measured_s=rep.seconds, plink_launches=rep.plink_launches,
+                            kernel_launches=n, fused_regions=regions, builds=builds)
+            print(f"  {name} {tag}: predicted {predicted:.6g} s, measured {rep.seconds:.6g} s, "
+                  f"{n} stream-kernel launches, {regions} fused regions, "
+                  f"{len(builds)} programs compiled before the run "
+                  f"({sum(b['seconds'] for b in builds):.2f} s)", flush=True)
+            check((n > 0) == (regions > 0),
+                  f"explore {name} {tag}: {n} stream-kernel launches for {regions} fused regions")
+            for b in builds:
+                check(b["before_run_s"] >= 0,
+                      f"explore {name} {tag}: kernel {b['library']} compiled inside the run")
+            check(len(out) == len(host) > 0,
+                  f"explore {name} {tag}: {len(out)} outputs vs {len(host)} on the host")
+            if name in EXACT:
+                check(out == host, f"explore {name} {tag}: != host bitwise")
+            else:
+                check(np.allclose(out, host, rtol=1e-5, atol=1e-4),
+                      f"explore {name} {tag}: not allclose to the host")
+            if tag == "all_device" and name in FUSED_NETS:
+                check(n > 0, f"explore {name}: the all-device corner never launched the kernel")
+            if name in FUSED_NETS:
+                launches[name] = launches.get(name, 0) + n
+        rows[name] = row
+
+    # IDCT8 over 0, 1 and 2 accelerator partitions of at most 2 actors: the
+    # live profile's 2-partition point and a pinned profile's, each run on
+    # the card against the 1-partition placement, bitwise
+    net, got = build_net(nets, "IDCT8", DSE_SIZES["IDCT8"])
+    prog = repro_torch.compile(net, block=DSE_BLOCK)
+    one, _rep, _n, _b = timed_run(prog.repartition(backend="device"), got)
+    kw = dict(thread_counts=(1,), accel_options=(0, 1, 2), accel_capacity=2)
+    multi = {}
+    for tag, prof in (("live", prog.profile(block=DSE_BLOCK, include_links=False)),
+                      ("pinned", pinned_idct8_profile(prog.graph))):
+        points = {p.n_accels: p for p in prog.explore(prof, **kw)}
+        check(set(points) == {0, 1, 2}, f"explore IDCT8 {tag}: accel counts {sorted(points)}")
+        if 2 not in points or not runnable(prog.graph, points[2]):
+            print(f"  IDCT8 accel_capacity=2 ({tag} profile): no runnable 2-accel point",
+                  flush=True)
+            check(tag == "live", "explore IDCT8 pinned: the 2-accel point feeds itself")
+            continue
+        placed = prog.repartition(xcf=points[2].xcf)
+        out, rep, n, _b = timed_run(placed, got)
+        asg = points[2].solution.assignment
+        multi[tag] = dict(partitions={pid: sorted(a for a, q in asg.items() if q == pid)
+                                      for pid in placed.hw_partitions},
+                          predicted_s=points[2].predicted, measured_s=rep.seconds,
+                          kernel_launches=n)
+        print(f"  IDCT8 accel_capacity=2 ({tag} profile): {multi[tag]['partitions']}, "
+              f"{rep}, {n} stream-kernel launches", flush=True)
+        check(out == one, f"explore IDCT8 {tag}: the 2-accel point != 1 partition bitwise")
+        check((n > 0) == (fused_regions(placed) > 0),
+              f"explore IDCT8 {tag}: {n} stream-kernel launches for "
+              f"{fused_regions(placed)} fused regions")
+        if tag == "pinned":
+            check(len(placed.hw_partitions) == 2,
+                  f"explore IDCT8 pinned: {placed.hw_partitions}, not 2 hw partitions")
+    link, link_points = measure_device_link()
+    link_row = dict(latency_s=link.latency_s, bandwidth_Bps=link.bandwidth_Bps,
+                    points=link_points, card=card)
+    print(f"  device link (pinned, non_blocking H2D): latency {link.latency_s:.3e} s, "
+          f"bandwidth {link.bandwidth_Bps / 1e9:.2f} GB/s on {card}", flush=True)
+    check(link.bandwidth_Bps > 0 and math.isfinite(link.latency_s), "device link fit")
+    for name, row in rows.items():
+        print("  " + json.dumps(row), flush=True)
+    return dict(rows=rows, launches=launches, multi=multi, link=link_row)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: StreamServe (FIR32, ``benchmarks/server_throughput.py``)
+# ---------------------------------------------------------------------------
+
+SERVE_NET = "FIR32"
+SERVE_BLOCK = 1024
+SERVE_SESSIONS = (1, 2, 4, 8, 16, 32)
+SERVE_TOKENS = 262144  # per sweep point, split across the sessions
+SCALE_SESSIONS, SCALE_TOKENS, SCALE_BLOCK, HOG_FACTOR = 1000, 256, 256, 64
+# a mixed partition, as explore()'s scattered points make: Bitonic8's fused
+# {ce0, ce4} beside an unfused ce2, 4 sessions of 2048 vectors
+MIXED_HW, MIXED_VECTORS, MIXED_SESSIONS = ("ce0", "ce4", "ce2"), 2048, 4
+
+
+def lcg_stream(n: int, mod: int = 100) -> list:
+    """The Table-I networks' source stream: what a client submits."""
+    return [float((x * 1103515245 + 12345) % mod) for x in range(n)]
+
+
+def isolated_run(nets, name: str, n: int, block: int) -> list:
+    """One stream's isolated ``run()`` on the card."""
+    import repro_torch
+
+    net, got = build_net(nets, name, n)
+    repro_torch.compile(net, backend="device", block=block).run()
+    return list(got)
+
+
+def check_served(server, what: str, dispatched: bool = True) -> None:
+    """The server met no fault and never degraded to the host (a CUDA
+    partition's failed launch fails its sessions instead), and, where
+    ``dispatched``, ran at least one round on the card."""
+    faults = server.metrics.get("serve_faults_total").value
+    degraded = server.metrics.get("serve_degraded").value
+    rounds = server.telemetry.lifetime().device_dispatches
+    check(faults == 0 and degraded == 0,
+          f"{what}: {faults} faults, serve_degraded={degraded}")
+    if dispatched:
+        check(rounds >= 1, f"{what}: {rounds} device rounds")
+
+
+def serve_once(prog, batching: bool, n_sessions: int, stream: list) -> dict:
+    """Serve ``n_sessions`` copies of ``stream``; outputs, seconds, rounds,
+    lanes, the stream kernel's launches and the latency summaries."""
+    from repro_torch.kernels.stream_fused import kernel
+
+    with prog.serve(batching=batching, max_batch=max(SERVE_SESSIONS),
+                    admission_depth=2 * SERVE_BLOCK) as server:
+        sessions = [server.open_session() for _ in range(n_sessions)]
+        before = kernel.LAUNCHES
+        t0 = time.perf_counter()
+        for i in range(0, len(stream), SERVE_BLOCK):
+            for s in sessions:
+                s.submit(stream[i:i + SERVE_BLOCK], port="source")
+        for s in sessions:
+            s.close()
+        drained = server.drain(timeout=600)
+        secs = time.perf_counter() - t0
+        launches = kernel.LAUNCHES - before
+        t = server.telemetry.lifetime()
+        ttfo = server.metrics.get("serve_ttfo_seconds").summary()
+        ib = server.metrics.get("serve_interblock_seconds").summary()
+        metrics_text = server.metrics_text()
+        outs = [s.output("sink") for s in sessions]
+        check_served(server, f"serve {'continuous' if batching else 'sequential'} "
+                             f"B={n_sessions}")
+    return dict(drained=drained, seconds=secs, outs=outs, rounds=t.device_dispatches,
+                lanes=t.device_lanes, width=t.device_width, tokens_in=t.device_tokens_in,
+                launches=launches, ttfo=ttfo, interblock=ib,
+                has_metrics="serve_ttfo_seconds" in metrics_text)
+
+
+def phase_stream_serve(nets) -> dict:
+    import threading as _threading
+
+    import repro_torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core.cost_model import NetworkProfile
+    from repro_torch.core.xcf import make_xcf
+    from repro_torch.kernels.stream_fused import kernel
+    from repro_torch.serve_stream import OnlineRepartitioner, StreamServer
+
+    print("phase 13: StreamServe (FIR32, block 1024)", flush=True)
+    net, _ = build_net(nets, SERVE_NET, SERVE_TOKENS)
+    prog = repro_torch.compile(net, backend="device", block=SERVE_BLOCK)
+    dp = prog.device_program()
+    n_fused = sum(1 for members in (dp.fused or {}).values() if members)
+    check(dp.lane_flat and n_fused == 1,
+          f"serve: FIR32's partition is not one lane-flat fused region ({dp.fused})")
+    full = lcg_stream(SERVE_TOKENS)
+    serve_once(prog, True, 2, full[:2 * SERVE_BLOCK])  # the engine's paths, untimed
+    serve_once(prog, False, 2, full[:2 * SERVE_BLOCK])
+    kernel.LAUNCHES = 0  # the count covers the serving runs below only
+    sweep, serve_launches, rounds_total = [], 0, 0
+    for n in SERVE_SESSIONS:
+        per = max(2 * SERVE_BLOCK, SERVE_TOKENS // n)
+        ref = isolated_run(nets, SERVE_NET, per, SERVE_BLOCK)
+        point = dict(sessions=n, tokens_per_session=per)
+        for mode, batching in (("continuous", True), ("sequential", False)):
+            launches_before = kernel.LAUNCHES
+            r = serve_once(prog, batching, n, full[:per])
+            serve_launches += kernel.LAUNCHES - launches_before
+            rounds_total += r["rounds"]
+            check(r["drained"], f"serve {mode} B={n}: drain timed out")
+            check(all(o == ref for o in r["outs"]),
+                  f"serve {mode} B={n}: a session != its isolated run bitwise")
+            check(r["tokens_in"] == n * per, f"serve {mode} B={n}: {r['tokens_in']} tokens in")
+            check(r["launches"] == n_fused * r["rounds"],
+                  f"serve {mode} B={n}: {r['launches']} stream-kernel launches in "
+                  f"{r['rounds']} rounds of {n_fused} fused program")
+            if batching and n > 1:
+                check(r["lanes"] > r["rounds"], f"serve B={n}: lanes never shared a round")
+            check(r["has_metrics"], "serve: metrics_text() lacks the TTFO histogram")
+            point[mode] = dict(
+                seconds=r["seconds"], tokens_per_s=n * per / r["seconds"], rounds=r["rounds"],
+                lanes=r["lanes"], width=r["width"], launches=r["launches"],
+                launches_per_round=r["launches"] / max(r["rounds"], 1),
+                ttfo_p50=r["ttfo"]["p50"], ttfo_p99=r["ttfo"]["p99"],
+                interblock_p50=r["interblock"]["p50"], interblock_p99=r["interblock"]["p99"],
+            )
+        point["speedup"] = point["sequential"]["seconds"] / point["continuous"]["seconds"]
+        print("  " + json.dumps(point), flush=True)
+        sweep.append(point)
+
+    # a mixed partition: the region's kernel still launches once a round
+    net, _ = build_net(nets, "Bitonic8", MIXED_VECTORS)
+    mixed = make_xcf("Bitonic8", {a: ("accel" if a in MIXED_HW else "t0")
+                                  for a in net.graph().actors})
+    mprog = repro_torch.compile(net, mixed, block=SERVE_BLOCK)
+    mdp = mprog.device_program()
+    check(not mdp.lane_flat and len(mdp.fused or {}) == 1 and len(mdp.actors) == 2,
+          f"serve mixed: not one fused region beside one unfused actor ({mdp.actors})")
+    mref = isolated_run(nets, "Bitonic8", MIXED_VECTORS, SERVE_BLOCK)
+    r = serve_once(mprog, True, MIXED_SESSIONS, lcg_stream(8 * MIXED_VECTORS, mod=1000))
+    check(r["drained"], "serve mixed: drain timed out")
+    check(all(o == mref for o in r["outs"]), "serve mixed: a session != its isolated run bitwise")
+    check(r["launches"] == r["rounds"] and r["lanes"] > r["rounds"],
+          f"serve mixed: {r['launches']} stream-kernel launches in {r['rounds']} rounds "
+          f"of {r['lanes']} lanes")
+    mixed_row = dict(sessions=MIXED_SESSIONS, vectors=MIXED_VECTORS, members=mdp.actors,
+                     megastep_k=mdp.megastep_k, rounds=r["rounds"], lanes=r["lanes"],
+                     launches=r["launches"], seconds=r["seconds"])
+    print("  mixed partition: " + json.dumps(mixed_row), flush=True)
+
+    # the device's idle share over a steady stretch: 8 sessions of 16384
+    stretch = full[:16384]
+    window = profile_window(lambda: serve_once(prog, True, 8, stretch), 2,
+                            match=("stream_fused_kernel",))
+    check_window(window, "serve: profiled window")
+    print(f"  serve window (8 sessions x 16384 tokens a call): idle share "
+          f"{window['idle_share']:.5f}, device busy {window['device_busy_ms_per_call']:.3f} "
+          f"ms in {window['ms_per_call']:.1f} ms a call", flush=True)
+
+    # scale: 1000 short sessions plus one hog, chunked at admission
+    net, _ = build_net(nets, SERVE_NET, SCALE_TOKENS)
+    sprog = repro_torch.compile(net, backend="device", block=SCALE_BLOCK)
+    small, hog_stream = lcg_stream(SCALE_TOKENS), lcg_stream(SCALE_TOKENS * HOG_FACTOR)
+    small_ref = isolated_run(nets, SERVE_NET, SCALE_TOKENS, SCALE_BLOCK)
+    hog_ref = isolated_run(nets, SERVE_NET, SCALE_TOKENS * HOG_FACTOR, SCALE_BLOCK)
+    with sprog.serve(batching=True, max_batch=max(SERVE_SESSIONS),
+                     admission_depth=2 * SCALE_BLOCK, admission_chunk=SCALE_BLOCK) as server:
+        hog = server.open_session()
+        smalls = [server.open_session() for _ in range(SCALE_SESSIONS)]
+        t0 = time.perf_counter()
+        hog_s = []
+
+        def run_hog():
+            hog.submit(hog_stream, port="source")
+            hog_s.append(time.perf_counter() - t0)
+            hog.close()
+
+        th = _threading.Thread(target=run_hog)
+        th.start()
+        for s in smalls:
+            s.submit(small, port="source")
+            s.close()
+        th.join(timeout=600)
+        drained = server.drain(timeout=600)
+        scale_s = time.perf_counter() - t0
+        t = server.telemetry.lifetime()
+        ttfo = sorted((s.first_delivery_ns - s.first_submit_ns) / 1e9 for s in smalls
+                      if s.first_delivery_ns is not None)
+        same = all(s.output("sink") == small_ref for s in smalls) and hog.output("sink") == hog_ref
+        check_served(server, "serve scale")
+    check(drained and not th.is_alive(), "serve scale: drain timed out")
+    check(t.chunks_split >= 1, "serve scale: the hog was never chunked")
+    check(len(ttfo) == SCALE_SESSIONS, "serve scale: a small session never delivered")
+    check(same, "serve scale: a session != its isolated run bitwise")
+    p95 = ttfo[round(0.95 * (len(ttfo) - 1))] if ttfo else float("nan")
+    scale = dict(sessions=SCALE_SESSIONS, hog_tokens=len(hog_stream), seconds=scale_s,
+                 tokens_per_s=(SCALE_SESSIONS * SCALE_TOKENS + len(hog_stream)) / scale_s,
+                 chunks_split=t.chunks_split, small_ttfo_p50=ttfo[len(ttfo) // 2] if ttfo else None,
+                 small_ttfo_p95=p95, hog_admission_s=hog_s[0] if hog_s else None,
+                 mean_batch=t.mean_batch)
+    print("  scale: " + json.dumps(scale), flush=True)
+
+    # kill mid-stream with periodic checkpoints, then recover: bitwise
+    n_kill = 65536
+    kill_stream, kill_ref = lcg_stream(n_kill), isolated_run(nets, SERVE_NET, n_kill, SERVE_BLOCK)
+    half = n_kill // 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        server = prog.serve(start=True, checkpoint_dir=tmp, checkpoint_every_s=0.05)
+        s = server.open_session()
+        for i in range(0, half, SERVE_BLOCK):
+            s.submit(kill_stream[i:i + SERVE_BLOCK], port="source")
+        after = ckpt.latest_step(tmp) or 0
+        deadline = time.time() + 60
+        while (ckpt.latest_step(tmp) or 0) <= after and time.time() < deadline:
+            time.sleep(0.01)
+        check((ckpt.latest_step(tmp) or 0) > after, "serve kill: no checkpoint after the submits")
+        delivered = len(s.results["sink"])
+        check_served(server, "serve before the kill", dispatched=False)
+        server.kill()
+        server2 = StreamServer.recover(prog, tmp, start=True)
+        try:
+            s2 = server2.session(0)
+            for i in range(half, n_kill, SERVE_BLOCK):
+                s2.submit(kill_stream[i:i + SERVE_BLOCK], port="source")
+            s2.close()
+            check(server2.drain(timeout=600), "serve recover: drain timed out")
+            check(s2.output("sink") == kill_ref, "serve recover != uninterrupted bitwise")
+            check_served(server2, "serve recovered")
+            rec = server2.recovery.sessions[0]
+            kill_row = dict(tokens=n_kill, delivered_before_kill=delivered,
+                            restored=rec.delivered_restored, replay_bound=rec.replay_bound,
+                            step=server2.recovery.step)
+        finally:
+            server2.stop()
+    print("  kill and recover: " + json.dumps(kill_row), flush=True)
+
+    # one online repartition: TopFilter served on the host, a calibration
+    # profile pricing the filter near zero on the device; the first solve
+    # moves it onto the card mid-stream (host and device compare the same
+    # float32 tokens, so the outputs stay bitwise)
+    n_top = 40000
+    top_ref = isolated_run(nets, "TopFilter", n_top, SERVE_BLOCK)
+    net, _ = build_net(nets, "TopFilter", n_top)
+    tprog = repro_torch.compile(net, backend="host", block=SERVE_BLOCK)
+    base = NetworkProfile()
+    base.exec_hw["filter"] = 1e-9
+    rep = OnlineRepartitioner(interval_s=0.0, min_window_s=0.0, min_gain=0.0,
+                              thread_counts=(1,), base_profile=base)
+    top_stream = lcg_stream(n_top)
+    with tprog.serve(repartitioner=rep) as server:
+        s = server.open_session()
+        s.submit(top_stream[:n_top // 2], port="source")
+        deadline = time.time() + 60
+        while not server.telemetry.swap_log and time.time() < deadline:
+            time.sleep(0.005)
+        s.submit(top_stream[n_top // 2:], port="source")
+        s.close()
+        check(server.drain(timeout=600), "serve repartition: drain timed out")
+        swaps = list(server.telemetry.swap_log)
+        moved = bool(swaps) and swaps[0]["to"].get("filter") == "accel"
+        on_card = {str(d.device) for d in server.program.device_programs().values()}
+        same = s.output() == top_ref
+        check_served(server, "serve repartition")
+    check(moved, f"serve repartition: no move onto the device ({swaps[:1]})")
+    check(on_card == {"cuda:0"}, f"serve repartition: device programs on {on_card}")
+    check(same, "serve repartition: outputs != the isolated run bitwise")
+    repart = dict(swaps=len(swaps), decisions=rep.decisions[:3], to=swaps[0]["to"] if swaps else None)
+    print("  online repartition: " + json.dumps(repart), flush=True)
+    return dict(sweep=sweep, window={k: v for k, v in window.items() if k != "top_kernels"},
+                scale=scale, kill=kill_row, repartition=repart, mixed=mixed_row,
+                launches=serve_launches,
+                rounds=rounds_total)
+
+
 def build_all(programs) -> None:
     """Build every kernel library at once, one nvcc per source in parallel:
     the five sources of ``csrc/`` and the stream kernel generated for each of
@@ -2155,6 +2665,9 @@ def main() -> int:
     torch.cuda.empty_cache()  # phase 10's largest input and plain version take ~25 GB
     quant_rows = phase_quant()
     compress = phase_compress()
+    torch.cuda.empty_cache()
+    explore = phase_explore(NETWORKS, card)
+    stream_serve = phase_stream_serve(NETWORKS)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
@@ -2173,6 +2686,12 @@ def main() -> int:
             ms=row["kernel_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
             ms_by_N={rows[(name, s)]["N"]: rows[(name, s)]["kernel_ms"] for s in TOKENS},
+            launches_by_path=dict(
+                run=launches[name], explore=explore["launches"].get(name),
+                **({"serve_rounds": stream_serve["launches"]} if name == SERVE_NET else {}),
+                **({"serve_mixed_rounds": stream_serve["mixed"]["launches"]}
+                   if name == "Bitonic8" else {}),
+            ),
             design="one generated straight-line kernel per StreamProgram: wires in "
                    "registers, 4 tokens a thread (16-byte loads), parameters as float32 "
                    "bit patterns, matmul8 across a lane pair by shuffles, perm through one "

@@ -10,9 +10,11 @@ never corrupts the restore point.  ``runtime.chaos`` sites (``ckpt:leaf``,
 bfloat16 leaves are stored losslessly: numpy has no bfloat16, so the file
 holds the raw 16-bit patterns as ``uint16`` and the manifest records the
 logical dtype ``bfloat16``; restore reinterprets the bits.  (The reference
-widens such leaves to float32 instead.)  The reference's object-dtype leaves
-(pickled Python values of the serve recovery path) and ``load_flat`` wait for
-the StreamServe slice.
+widens such leaves to float32 instead.)  A leaf may also be a numpy array:
+object-dtype leaves (pickled Python values — the serve recovery path's
+token streams and actor states, which need exact scalar-type round-trips
+for bit-identity) pass through np.save's pickle path and are never coerced,
+and ``load_flat`` returns every leaf as stored.
 
 Arrays are saved from host copies; ``restore`` places each leaf on the device
 and in the dtype of the matching leaf of ``like``, and keeps its
@@ -39,8 +41,10 @@ from repro_torch.runtime import chaos as chaos_mod
 PyTree = Any
 
 
-def _to_numpy(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """(array to store, logical dtype)."""
+    if isinstance(leaf, np.ndarray):
+        return leaf, "object" if leaf.dtype == object else str(leaf.dtype)
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -110,6 +114,23 @@ def latest_step(ckpt_dir) -> Optional[int]:
     if not (Path(ckpt_dir) / f"step_{step}" / "manifest.json").exists():
         return None
     return step
+
+
+def load_flat(ckpt_dir, step: int) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Raw flattened view of one step: ``{key path: stored array}`` plus the
+    manifest ``extra`` dict.  No ``like`` tree needed — the serve recovery
+    path reconstructs structure from its own metadata.  Arrays come back
+    exactly as stored (a ``bfloat16`` leaf as its ``uint16`` bit
+    patterns)."""
+    d = Path(ckpt_dir) / f"step_{step}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    flat = {
+        key: np.load(
+            d / info["file"], allow_pickle=info["dtype"] == "object"
+        )
+        for key, info in manifest["leaves"].items()
+    }
+    return flat, manifest["extra"]
 
 
 def restore(

@@ -22,8 +22,8 @@ Port of ``repro/frontend/program.py``.  ``compile(..., device=)`` names the
 torch device the hw partitions run on (default ``cuda:0``; an XCF ``pe`` of
 ``"gpu:<i>"``/``"cuda:<i>"``/``"cpu"`` picks its own).  A placement with a hw
 partition on CUDA raises when no card is present — it never quietly runs on
-the CPU.  ``serve()``, ``profile()`` and ``explore()`` arrive with later
-slices of the port.
+the CPU.  ``profile()`` measures the device coefficients on the same
+device, and ``serve()`` keeps the partitions resident there.
 """
 
 from __future__ import annotations
@@ -205,9 +205,18 @@ class Program:
             check=check,
             megastep=megastep,
         )
-        from repro_torch.runtime.device_runtime import resolve_pe_device
+        from repro_torch.runtime.device_runtime import feeds_itself, resolve_pe_device
 
         for r in self._module.hw_regions():
+            loop = feeds_itself(self._module.channels, r.actors)
+            if loop is not None:
+                raise FrontendError(
+                    f"{graph.name}: hw partition {r.id!r} feeds itself: a path "
+                    f"leaves it at {loop[0]!r} and comes back in at {loop[1]!r}; "
+                    f"its connected actors are staged in lockstep, so this "
+                    f"placement would stall — move the actors on that path "
+                    f"onto the partition, or one of its ends off it"
+                )
             dev = resolve_pe_device(r.pe, self._device)
             if r.actors and dev.type == "cuda" and not torch.cuda.is_available():
                 raise FrontendError(
@@ -414,12 +423,68 @@ class Program:
             trace=payload,
         )
 
-    # -- later slices of the port ------------------------------------------------
-    def serve(self, **_kw):
-        """Multi-session serving arrives with the serving port."""
-        raise NotImplementedError(
-            "repro_torch: Program.serve() is not ported yet (ROADMAP A7, StreamServe)"
+    # -- serving ---------------------------------------------------------------
+    def serve(
+        self,
+        *,
+        admission_chunk: Optional[int] = None,
+        admission_depth: Optional[int] = None,
+        batching: bool = True,
+        max_batch: int = 32,
+        repartitioner=None,
+        start: bool = False,
+        trace: bool = False,
+        chaos=None,
+        checkpoint_dir=None,
+        checkpoint_every_s: Optional[float] = None,
+        launch_retries: int = 3,
+        retry_base_s: float = 0.005,
+    ):
+        """A persistent multi-session streaming server over this placement.
+
+        ``run()`` executes one stream and exits; ``serve()`` returns a
+        ``repro_torch.serve_stream.StreamServer`` that keeps the compiled
+        runtimes resident and multiplexes many client sessions over them — continuous
+        batched device dispatch (sessions join/leave a rolling batch at
+        block boundaries), bounded admission queues with chunked admission
+        (``admission_chunk`` tokens per chunk — large submissions are split
+        so one session cannot starve the rest), live telemetry, and optional
+        online repartitioning (pass an ``OnlineRepartitioner``).  Use as a
+        context manager, or pass ``start=True``.  See ``docs/server.md``.
+
+        ``trace=True`` records the server's whole life with streamtrace
+        (``server.trace(path)`` exports Chrome-trace JSON; ``server
+        .metrics_text()`` exposes TTFO / inter-block latency histograms) —
+        see docs/observability.md.
+
+        Reliability knobs (docs/reliability.md): ``chaos`` injects
+        deterministic seeded faults (a ``runtime.chaos.Chaos``, a spec
+        string, or a rule list; default: the ``REPRO_CHAOS`` env);
+        ``checkpoint_dir`` + ``checkpoint_every_s`` enable periodic
+        per-session snapshots so a killed engine restarts via
+        ``StreamServer.recover(program, checkpoint_dir)``; device launches
+        retry ``launch_retries`` times with exponential backoff from
+        ``retry_base_s`` before the partition is quarantined and sessions
+        degrade to the all-host placement — except on a CUDA device, where
+        the partition's sessions fail instead of moving to the host.
+        """
+        from repro_torch.serve_stream import StreamServer
+
+        server = StreamServer(
+            self,
+            admission_chunk=admission_chunk,
+            admission_depth=admission_depth,
+            batching=batching,
+            max_batch=max_batch,
+            repartitioner=repartitioner,
+            trace=trace,
+            chaos=chaos,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every_s=checkpoint_every_s,
+            launch_retries=launch_retries,
+            retry_base_s=retry_base_s,
         )
+        return server.start() if start else server
 
     # -- the recompile-with-directives loop ------------------------------------
     def repartition(
@@ -443,18 +508,79 @@ class Program:
         )
         return Program(self._source, self._graph, new, **self._opts)
 
-    def profile(self, **_kw):
-        """MILP profiling arrives with the profiling port."""
-        raise NotImplementedError(
-            "repro_torch: Program.profile() is not ported yet (ROADMAP A6b, "
-            "profiling and placement exploration)"
+    def profile(
+        self,
+        *,
+        block: int = 2048,
+        include_device: bool = True,
+        include_links: bool = True,
+        include_host_fused: bool = True,
+        bandwidth_sizes=(256, 2048),
+    ):
+        """Measure the MILP's inputs (§III-E): per-actor sw/hw times
+        (interpreted AND host-fused — distinct coefficients, so ``explore``
+        prices host design points at the block executor's real speed),
+        channel token counts, and link models.  Returns a
+        ``NetworkProfile``."""
+        import os
+
+        from repro_torch.core.profiler import (
+            measure_fifo_bandwidth,
+            profile_device,
+            profile_host,
+            profile_host_fused,
         )
 
-    def explore(self, prof=None, **_kw):
-        """Placement exploration needs the profiling port."""
-        raise NotImplementedError(
-            "repro_torch: Program.explore() is not ported yet (ROADMAP A6b, "
-            "profiling and placement exploration)"
+        self._reset_collectors()
+        prof, _rt = profile_host(
+            self._graph, controller=self._opts["controller"]
+        )
+        if include_host_fused:
+            self._reset_collectors()
+            prof = profile_host_fused(
+                self._graph, prof,
+                controller=self._opts["controller"],
+                block=self._opts["block"],
+            )
+        if include_device:
+            prof = profile_device(
+                self._graph, prof, block=block, device=self._device
+            )
+        if include_links:
+            intra, _ = measure_fifo_bandwidth(
+                cross_thread=False, sizes=bandwidth_sizes
+            )
+            inter, _ = measure_fifo_bandwidth(
+                cross_thread=True, sizes=bandwidth_sizes
+            )
+            prof.links["intra"], prof.links["inter"] = intra, inter
+        prof.n_cores = os.cpu_count()
+        self._reset_collectors()
+        return prof
+
+    def explore(
+        self,
+        prof=None,
+        *,
+        thread_counts=(1, 2, 3),
+        accel_options=(False, True),
+        **explore_kw,
+    ):
+        """Profile (if needed) and solve the placement MILP across the
+        (thread-count x accelerator) grid; returns the design points."""
+        from repro_torch.core.partitioner import explore as _explore
+
+        if prof is None:
+            prof = self.profile()
+        # price megasteps: the plink boundary cost in eq. (4) amortizes over
+        # k repetition-vector iterations per launch
+        from repro_torch.ir.passes import resolve_megastep
+
+        prof.megastep_k = resolve_megastep(self._opts.get("megastep", "auto"))
+        return _explore(
+            self._graph, prof,
+            thread_counts=thread_counts, accel_options=accel_options,
+            **explore_kw,
         )
 
 

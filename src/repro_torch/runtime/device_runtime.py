@@ -28,9 +28,18 @@ whole stack runs as ONE kernel launch over ``k*block`` tokens
 block transforms never straddle a chunk edge).  Actor state tensors stay on
 the device, chained launch to launch.
 
+Batched lanes (StreamServe): ``batched_step``/``batched_megastep`` step B
+independent session lanes in one call, lane *i* bitwise the unbatched
+``step``/``megastep`` over lane *i*.  Each fused CUDA stream region (no
+state, ``block`` a multiple of its program's block unit) takes the B lanes'
+wires as one ``(B*k, block)`` stack, so its kernel launches ONCE for the
+round, as the reference's vmap makes one Pallas launch of B lanes; every
+other member (unfused per-actor ``vector_fire``s, stateful scans: plain
+torch ops, no kernel) steps the lanes one after another.  ``lane_flat``
+marks a partition whose members are all such regions.
+
 ``region_quantum``, ``staging_plan``, ``_lower_legacy`` and
 ``resolve_megastep_k`` are copies of ``repro/runtime/device_runtime.py``.
-The batched (multi-session) entry points arrive with the serving port.
 """
 
 from __future__ import annotations
@@ -72,10 +81,19 @@ class DeviceProgram:
     # the classic one-block step; k > 1 means ``megastep`` takes ``(k,
     # block)`` input stacks and returns ``(k, block)`` outputs.
     megastep_k: int = 1
-    # True when the megastep is ONE flat (k*block)-token kernel launch
-    # (every member a fused CUDA stream region) instead of a k-chunk loop
-    flat_megastep: bool = False
     megastep: Callable = None
+    # True when every member is a fused CUDA stream region (stateless, block
+    # a multiple of its block unit): its wires may stack any number of
+    # chunks or lanes into one launch of each region's kernel
+    lane_flat: bool = False
+    # B lanes of (block,) or (k, block) wires in one call (``batched_step``)
+    batched: Callable = None
+
+    @property
+    def flat_megastep(self) -> bool:
+        """True when the megastep is ONE flat (k*block)-token kernel launch
+        instead of a k-chunk loop."""
+        return self.lane_flat and self.megastep_k > 1
 
     def launch(self, state, inputs):
         """Dispatch one launch: the megastep when this program has one
@@ -84,6 +102,73 @@ class DeviceProgram:
         if self.megastep_k > 1:
             return self.megastep(state, inputs)
         return self.step(state, inputs)
+
+    def batched_step(self, batch: int) -> Callable:
+        """One call stepping ``batch`` independent session lanes.
+
+        Signature mirrors ``step`` with a leading lane axis everywhere:
+        ``(state (B,...), {in: (vals (B,block), mask (B,block))}) ->
+        (state', {out: (B,block)...}, idle (B,))``.  Lane *i* is bitwise an
+        unbatched ``step`` over lane *i*'s state and block.  Each fused CUDA
+        stream region launches its kernel once for the round, over
+        ``B*block`` tokens; the other members step the lanes in turn.  One
+        callable serves every batch size."""
+        return self.batched
+
+    def batched_megastep(self, batch: int) -> Callable:
+        """``batched_step`` for megastep programs: ``batch`` lanes of
+        ``(k, block)`` chunk stacks, lane *i* bitwise an unbatched
+        ``megastep`` over lane *i*."""
+        assert self.megastep is not None, (
+            f"{self.name}: program compiled without a megastep"
+        )
+        return self.batched
+
+    def batched_init_state(self, batch: int) -> Dict[str, Any]:
+        """``init_state`` broadcast to ``batch`` lanes."""
+        return _tree_map(
+            lambda x: x.expand((batch,) + tuple(x.shape)), self.init_state
+        )
+
+    def pack_lanes(
+        self, payloads: Sequence[Dict[str, Tuple[np.ndarray, np.ndarray]]],
+    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """Per-lane staged payloads -> one batched input dict on the device.
+
+        Each payload maps ``"actor.port" -> (vals, mask)`` host arrays of
+        shape ``(block,)`` (or ``(k, block)`` for megastep programs); the
+        result stacks them along a new leading lane axis (lane *i* is
+        ``payloads[i]``), in each port's staging dtype.  On CUDA the stack
+        is written into pinned host memory and copied to the device
+        asynchronously, as PLink stages (the caching host allocator keeps a
+        pinned block until the copy that reads it has completed)."""
+        from repro_torch.runtime.plink import _host_dtype
+
+        cuda = self.device.type == "cuda"
+        packed = {}
+        for (a, p, dt) in self.in_ports:
+            key = f"{a}.{p}"
+            pair = []
+            for j, dtype in ((0, _host_dtype(dt)), (1, torch.bool)):
+                rows = [pay[key][j] for pay in payloads]
+                shape = (len(rows),) + tuple(np.shape(rows[0]))
+                host = torch.empty(shape, dtype=dtype, pin_memory=cuda)
+                if dtype == torch.bfloat16:  # numpy has no bfloat16
+                    host.copy_(torch.from_numpy(np.stack(rows).astype(np.float32)))
+                else:
+                    np.stack(rows, out=host.numpy())
+                pair.append(host.to(self.device, non_blocking=True) if cuda else host)
+            packed[key] = tuple(pair)
+        return packed
+
+    def stack_states(self, states: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+        """Per-session state trees -> one batched tree (lane order kept)."""
+        return _tree_stack(states, self.device)
+
+    @staticmethod
+    def unstack_state(batched: Dict[str, Any], lane: int) -> Dict[str, Any]:
+        """Extract one session's state tree from a batched tree."""
+        return _tree_map(lambda x: x[lane], batched)
 
 
 def region_quantum(module: IRModule, actor_name: str) -> int:
@@ -167,6 +252,39 @@ def staging_plan(
     return groups, quanta
 
 
+def feeds_itself(
+    channels: Sequence, members: Sequence[str]
+) -> Optional[Tuple[str, str]]:
+    """A pair ``(a, b)`` of ``members``, in one connected part of the
+    partition, where a path leaves the partition at ``a`` and comes back in
+    at ``b``; None when no part of the partition feeds itself.
+
+    ``staging_plan`` stages a connected part's boundary ports in lockstep, so
+    such a part waits for tokens that only its own next launch would make:
+    the placement stalls (it does in the reference too).  ``explore()`` can
+    emit one where device placements tie in the MILP.  ``channels`` are a
+    graph's or a lowered module's (``src``/``dst`` actor names)."""
+    from repro_torch.ir.ir import connected_components
+
+    sub = set(members)
+    part = connected_components(sub, channels)
+    succ: Dict[str, set] = {}
+    for ch in channels:
+        succ.setdefault(ch.src, set()).add(ch.dst)
+    for a in sorted(sub):
+        seen, stack = set(), [v for v in succ.get(a, ()) if v not in sub]
+        while stack:
+            x = stack.pop()
+            if x in seen:
+                continue
+            seen.add(x)
+            for v in succ.get(x, ()):
+                if v in sub and part[v] == part[a]:
+                    return a, v
+                stack.append(v)  # off the partition, or another part of it
+    return None
+
+
 def resolve_pe_device(pe: str, default) -> torch.device:
     """Map an XCF ``PartitionSpec.pe`` string to a ``torch.device``.
 
@@ -212,6 +330,18 @@ def _tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _tree_stack(trees: Sequence, device: torch.device):
+    """Stack matching leaves of ``trees`` along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_stack([t[k] for t in trees], device) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(
+            _tree_stack([t[i] for t in trees], device) for i in range(len(first))
+        )
+    return torch.stack([_leaf_to(x, device) for x in trees])
 
 
 def state_from_numpy(program: DeviceProgram, tree) -> Dict[str, Any]:
@@ -403,8 +533,9 @@ def compile_partition(
     }
     actor_in_ports = {a: [p.name for p in impls[a].inputs] for a in names}
 
-    def step(state, inputs):
-        """inputs: {"actor.port": (vals, mask)}, each (block,) or (k, block)"""
+    def members(state, inputs, fire):
+        """Fire the members in topological order, routing their wires:
+        ``fire(a, state[a], {port: (vals, mask)}) -> (state', outs)``."""
         wires: Dict[Tuple[str, str], Tuple[torch.Tensor, torch.Tensor]] = {}
         for (a, p, _dt) in in_ports:
             wires[(a, p)] = inputs[f"{a}.{p}"]
@@ -412,7 +543,7 @@ def compile_partition(
         outs: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         for a in order:
             ins = {p: wires[(a, p)] for p in actor_in_ports[a]}
-            st, a_outs = vfs[a](new_state[a], ins)
+            st, a_outs = fire(a, new_state[a], ins)
             new_state[a] = st
             for ch in internal:
                 if ch.src == a:
@@ -420,6 +551,11 @@ def compile_partition(
             for (sa, sp, _dt) in out_ports:
                 if sa == a:
                     outs[f"{sa}.{sp}"] = a_outs[sp]
+        return new_state, outs
+
+    def step(state, inputs):
+        """inputs: {"actor.port": (vals, mask)}, each (block,) or (k, block)"""
+        new_state, outs = members(state, inputs, lambda a, st, ins: vfs[a](st, ins))
         # idle <=> no valid token consumed or produced; stays on the device
         masks = [m.reshape(-1) for _, m in outs.values()]
         masks += [m.reshape(-1) for _, m in inputs.values()]
@@ -441,27 +577,67 @@ def compile_partition(
     megastep_k = resolve_megastep_k(
         module, sub, init_state, in_ports, block, megastep
     )
-    flat = False
+    # Flat members: a fused CUDA stream region is shape-polymorphic over the
+    # token axis (its kernel takes a (k, block) stack, or B lanes of them,
+    # in one launch, each row as it would be alone) — provided it holds no
+    # state and no block transform (matmul8 8-blocks, perm P-blocks)
+    # straddles a chunk edge, i.e. block % block_unit == 0.
+    from repro_torch.kernels.stream_fused.ops import block_unit
+
+    def _flat_ok(a: str) -> bool:
+        prog_obj = getattr(impls[a], "stream_program", None)
+        return (
+            module.actors[a].codegen == "cuda"
+            and prog_obj is not None
+            and not init_state[a]
+            and block % block_unit(prog_obj) == 0
+        )
+
+    flat_members = {a for a in names if _flat_ok(a)}
+    lane_flat = flat_members == sub
+
+    def batched(state, inputs):
+        """B lanes of (B, block) or (B, k, block) wires: a flat member runs
+        the lanes' (and chunks') rows as one (B*k, block) stack — one launch
+        of its kernel — and every other member steps each lane's chunks in
+        order, threading that lane's state, as the unbatched
+        ``step``/``megastep`` does."""
+        lead = next(iter(inputs.values()))[0].shape[:-1]
+
+        def fire(a, st_b, ins):
+            if a in flat_members:
+                rows = {p: (v.reshape(-1, block), m.reshape(-1, block))
+                        for p, (v, m) in ins.items()}
+                _st, outs = vfs[a](st_b, rows)
+                return st_b, {
+                    p: (v.reshape(lead + v.shape[-1:]), m.reshape(lead + m.shape[-1:]))
+                    for p, (v, m) in outs.items()
+                }
+            lane_states, cols = [], {}
+            for i in range(lead[0]):
+                st = DeviceProgram.unstack_state(st_b, i)
+                for at in [(i, j) for j in range(lead[1])] if len(lead) > 1 else [(i,)]:
+                    st, outs = vfs[a](st, {p: (v[at], m[at]) for p, (v, m) in ins.items()})
+                    for p, pair in outs.items():
+                        cols.setdefault(p, []).append(pair)
+                lane_states.append(st)
+            return _tree_stack(lane_states, device), {
+                p: tuple(
+                    torch.stack([pair[x] for pair in pairs]).reshape(lead + pairs[0][x].shape)
+                    for x in (0, 1)
+                )
+                for p, pairs in cols.items()
+            }
+
+        new_state, outs = members(state, inputs, fire)
+        masks = [m.reshape(lead[0], -1) for _, m in outs.values()]
+        masks += [m.reshape(lead[0], -1) for _, m in inputs.values()]
+        idle = torch.logical_not(torch.cat(masks, dim=1).any(dim=1))
+        return new_state, outs, idle
+
     megastep_fn = None
     if megastep_k > 1:
-        # Flat path: when every member is a fused CUDA stream region the step
-        # body is shape-polymorphic over the token axis (the kernel takes a
-        # (k, block) stack as k*block tokens in one launch) — provided no
-        # block transform (matmul8 8-blocks, perm P-blocks) straddles a
-        # chunk edge, i.e. block % block_unit == 0.
-        from repro_torch.kernels.stream_fused.ops import block_unit
-
-        def _flat_ok(a: str) -> bool:
-            prog_obj = getattr(impls[a], "stream_program", None)
-            return (
-                module.actors[a].codegen == "cuda"
-                and prog_obj is not None
-                and block % block_unit(prog_obj) == 0
-            )
-
-        flat = all(_flat_ok(a) for a in names)
-
-        if flat:
+        if lane_flat:
             megastep_fn = step
         else:
             def megastep_fn(state, inputs):
@@ -501,8 +677,9 @@ def compile_partition(
         pe=pe,
         device=device,
         megastep_k=megastep_k,
-        flat_megastep=flat,
         megastep=megastep_fn,
+        lane_flat=lane_flat,
+        batched=batched,
     )
 
 

@@ -7,6 +7,7 @@ JAX), so it copies them; this test makes any change to a copy, or to its
 original, visible.
 """
 
+import ast
 import re
 from pathlib import Path
 
@@ -62,6 +63,62 @@ EDITS = {
             '    #   PyTorch versions on CPU tensors — the CPU tests)\n',
         ),
     ],
+    "serve_stream/engine.py": [
+        (
+            "notified by ``submit``/``close``/``stop`` — a parked server burns no core.\n\"\"\"",
+            "notified by ``submit``/``close``/``stop`` — a parked server burns no core.\n\n"
+            "Copy of ``repro/serve_stream/engine.py``.  Edit: ``_degrade`` never moves\n"
+            "a partition on a CUDA device to the host — a launch or retire that fails\n"
+            "there fails the partition's live sessions loudly instead.\n\"\"\"",
+        ),
+        (
+            "        if pid in self._quarantined:\n            return\n"
+            "        self._quarantined.add(pid)\n",
+            "        if pid in self._quarantined:\n            return\n"
+            "        device = self._batchers[pid].program.device\n"
+            "        if device.type == \"cuda\":\n"
+            "            # the partition's tensors live on the card: the host placement\n"
+            "            # would compute what the card was asked to, so fail its live\n"
+            "            # sessions instead of serving them somewhere else\n"
+            "            with self._lock:\n"
+            "                sessions = list(self._sessions)\n"
+            "            for s in sessions:\n"
+            "                if s.pipeline is not None and pid in s.pipeline.stages:\n"
+            "                    self._fail_session(\n"
+            "                        s, exc, f\"device launch on partition {pid!r} ({device})\"\n"
+            "                    )\n"
+            "            return\n"
+            "        self._quarantined.add(pid)\n",
+        ),
+    ],
+    "serve_stream/session.py": [
+        (
+            "``Program.run()`` over the same input stream.\n\"\"\"",
+            "``Program.run()`` over the same input stream.\n\nCopy of "
+            "``repro/serve_stream/session.py``.  Edits: ``DeviceStage`` stages\n"
+            "numpy buffers in the numpy form of the port's staging dtype\n"
+            "(``runtime/plink.py::_host_dtype``; bfloat16, which numpy lacks, as\n"
+            "float32), and the batcher hands them to the device as torch tensors.\n"
+            "\"\"\"",
+        ),
+        ("import numpy as np\n\nfrom", "import numpy as np\nimport torch\n\nfrom"),
+        (
+            "from repro_torch.runtime.plink import _np_dtype\n",
+            "from repro_torch.runtime.plink import _host_dtype\n\n\n"
+            "def _np_dtype(dt: str) -> np.dtype:\n"
+            '    """The numpy dtype a boundary port stages in on the host."""\n'
+            "    t = _host_dtype(dt)\n"
+            "    if t == torch.bfloat16:\n"
+            "        return np.dtype(np.float32)\n"
+            "    return torch.empty(0, dtype=t).numpy().dtype\n",
+        ),
+        (
+            "(``pack_lanes`` stacks, the\n"
+            "        # sequential path ``jnp.asarray``s) inside",
+            "(``pack_lanes`` stacks them into\n"
+            "        # fresh host tensors for both modes) inside",
+        ),
+    ],
 }
 
 CONFIGS = sorted(
@@ -101,6 +158,26 @@ COPIES = [
     "data/pipeline.py",
     "data/tokenizer.py",
     "distributed/fault.py",
+    "core/cost_model.py",
+    "core/milp.py",
+    "core/partitioner.py",
+    "analysis/__main__.py",
+    "serve_stream/__init__.py",
+    "serve_stream/admission.py",
+    "serve_stream/telemetry.py",
+    "serve_stream/repartition.py",
+    "serve_stream/engine.py",
+    "serve_stream/session.py",
+]
+
+# ``core/profiler.py`` is a port: these functions in it are copies
+PROFILER_COPIES = [
+    "profile_host",
+    "profile_host_fused",
+    "fit_link_model",
+    "measure_fifo_bandwidth",
+    "profile_from_telemetry",
+    "profile_from_trace",
 ]
 
 
@@ -118,6 +195,20 @@ def test_copy_matches_original(rel):
         f"src/repro_torch/{rel} drifted from src/repro/{rel}: port the "
         f"change, or list the edit in EDITS"
     )
+
+
+def _function_source(path: Path, name: str) -> str:
+    text = path.read_text()
+    (node,) = [n for n in ast.parse(text).body
+               if isinstance(n, ast.FunctionDef) and n.name == name]
+    return ast.get_source_segment(text, node)
+
+
+@pytest.mark.parametrize("name", PROFILER_COPIES)
+def test_copied_profiler_function_matches_original(name):
+    orig = _function_source(SRC / "repro/core/profiler.py", name)
+    port = _function_source(SRC / "repro_torch/core/profiler.py", name)
+    assert port == re.sub(r"\brepro\b", "repro_torch", orig)
 
 
 def test_copied_fused_stream_np_matches_original():
