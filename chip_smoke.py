@@ -58,8 +58,10 @@ Phases, one line or more each:
              finite and falling; then a profiled window of three steps after
              a discarded warm-up step (``profile_window``: the device's idle
              share, the flash kernels' ms per step, each and together, the
-             device records beside what the host enqueued), and one step with
-             ``use_kernels="off"``
+             device records beside what the host enqueued; no float32 GEMM
+             launched 8 times a step among the top kernels: the LM head's
+             forward is a bf16 product with a float32 result), and one step
+             with ``use_kernels="off"``
              from the same parameters and batch, whose loss must match.  The
              RMSNorm kernel runs on this path too (every block norm and the
              final norm, again in each block's recompute).
@@ -152,7 +154,13 @@ Phases, one line or more each:
              grads under 0.01); ms per round, the kernel's share and the
              idle share of a profiled window; and ``all_reduce_int8`` over
              a one-rank NCCL group against the round trip, bitwise.
-12. explore — the profile-guided partitioner on the five Table-I networks at
+12. explore — first the unfused device step (ROADMAP C8): up to three
+             single-actor partitions a network as ``profile_device`` builds
+             them, each step's kernels, device µs and host µs a call eager
+             beside its CUDA-graph replay (``GraphedStep``, what
+             ``profile_device`` now times), the replay bitwise the eager step
+             (and the CPU's on the compare-only networks); then
+             the profile-guided partitioner on the five Table-I networks at
              ``benchmarks/table2_dse.py``'s sizes (block 2048, links over 256,
              1024 and 4096 tokens): ``profile()`` on the card, then
              ``explore(thread_counts=(1, 2, 3), accel_options=(False, True))``;
@@ -187,6 +195,25 @@ Phases, one line or more each:
              mid-stream with periodic checkpoints and ``StreamServer.recover``,
              bitwise; and one ``OnlineRepartitioner`` move of TopFilter from
              the host onto the card mid-stream, bitwise.
+14. train   — SSM and MoE training through the kernels: mamba2-130m at its
+             published widths and depth (8 x 2048 tokens, ``remat="block"``)
+             and deepseek-moe-16b at its published widths and 4 of its 28
+             layers (4 x 2048, ``remat="save_dispatch"``; the cut is forced
+             by memory: parameters, gradients and two float32 moments, old
+             and new in the update), ``use_kernels="cuda"``.  First one
+             ``lm_loss`` forward and backward on the seeded parameters and
+             batch: the kernels launched in the forward and in the backward
+             (``ssd_scan`` 24 + 24 in the blocks' recompute; ``moe_gmm``
+             forwards, their recompute and dx launches apart; flash and
+             RMSNorm), the loss within 2e-2 of ``use_kernels="off"`` and the
+             gradient norm within 2e-2 relative, and for deepseek the loss
+             under ``remat="block"`` equal to ``save_dispatch``'s, the peak
+             memory of each recorded.  Then 10 steps of the train step
+             (AdamW) with the counts set to 0 just before and read just
+             after: losses finite and falling, tokens/s, peak memory; a
+             profiled window of three steps (idle share, top kernels); and
+             the new backwards' pieces a layer at the path's shapes (the SSD
+             backward, the transposed weight copy, dx and dW).
 
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels (each with its design); the last line is
@@ -352,14 +379,14 @@ def call_ms(fn, reps: int) -> float:
     return _events(run, reps)
 
 
-def queued_ms(fn, reps: int) -> float:
+def queued_ms(fn, reps: int, spin_ms: float = 1.0) -> float:
     """ms per call on the device for a call not captured in a CUDA graph: a
-    spin kernel holds the stream (about 1 ms of the card's clock per call)
-    while the host queues ``reps`` calls, so the events time the device's
-    work and not the host's."""
+    spin kernel holds the stream (about ``spin_ms`` of the card's clock per
+    call) while the host queues ``reps`` calls, so the events time the
+    device's work and not the host's."""
     fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(2e6 * reps))
+    torch.cuda._sleep(int(2e6 * spin_ms * reps))
     return _events(lambda: [fn() for _ in range(reps)], reps)
 
 
@@ -937,6 +964,9 @@ def _profile_once(run, n: int, warmup: bool, match) -> dict:
                 top_kernels=top)
 
 
+F32_GEMMS = ("sgemm", "gemm_f32f32_f32f32")  # cuBLAS's float32 GEMM kernels
+
+
 def phase_train() -> dict:
     import dataclasses
 
@@ -995,6 +1025,14 @@ def phase_train() -> dict:
         f"{name} {ms:.3f}" for name, ms in per_kernel.items())
         + f"; all {sum(per_kernel.values()):.3f}", flush=True)
     row["profiled"] = prof
+    # the LM head's forward is a bf16 product with a float32 result: no
+    # float32 GEMM runs once a CE chunk and again in its recompute
+    head_f32 = [k for k in prof["top_kernels"]
+                if any(p in k["kernel"] for p in F32_GEMMS) and k["per_call"] >= 8]
+    print(f"  head: device busy {prof['device_busy_ms_per_call']:.1f} ms a step, "
+          f"{row['tokens_per_s']:.0f} tokens/s; float32 GEMMs launched 8+ times a step among "
+          f"the top kernels: {head_f32}", flush=True)
+    check(not head_f32, "train: a float32 GEMM of the LM head's forward is among the top kernels")
 
     _, _, m_k = step_k(params, opt_state, batch)
     step_o = make_train_step(dataclasses.replace(cfg, use_kernels="off"), opt)
@@ -2007,7 +2045,11 @@ EF_REL_TOL = 0.01  # tests/test_checkpoint_fault.py::test_ef_compression_error_f
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """The same bits (so NaN == NaN and -0.0 != +0.0)."""
     ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-    return a.dtype == b.dtype and bool(torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype not in ints:  # integers and booleans: equal values are equal bits
+        return bool(torch.equal(a, b))
+    return bool(torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
 
 
 def phase_compress() -> dict:
@@ -2192,6 +2234,94 @@ def runnable(graph, point) -> bool:
                    for pid in point.accel_ids)
 
 
+C8_ACTORS = 3  # single-actor partitions measured per network (the first device actors)
+C8_REPS = 200
+
+
+def unfused_step(nets) -> dict:
+    """ROADMAP C8: single-actor partitions as ``core/profiler.py::
+    profile_device`` builds them (``compile_partition(graph, [actor])``: the
+    legacy, unfused lowering, per-actor torch ops) at phase 12's block, on
+    seeded inputs: the eager step's device kernels and device busy µs a call
+    (the profiler's) and its host µs a call (``C8_REPS`` calls, then one
+    synchronise), beside the same step as ``profile_device`` now runs it,
+    a ``runtime/device_runtime.py::GraphedStep`` (captured once after a
+    warm-up, then replayed), timed the same way.  The replay's outputs,
+    idle flag and state equal the eager step's bitwise, and on the
+    compare-only networks the CPU's eager step's too."""
+    import repro_torch
+    from repro_torch.core.graph import GraphError
+    from repro_torch.runtime.device_runtime import GraphedStep, compile_partition
+
+    dev = torch.device("cuda:0")
+
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(C8_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / C8_REPS * 1e6
+
+    def leaves(out):
+        state, outs, idle = out
+        return [idle] + [t for pair in outs.values() for t in pair] + [
+            t for st in state.values() for t in st.values() if isinstance(t, torch.Tensor)]
+
+    rows = []
+    for name, size in DSE_SIZES.items():
+        net, _got = build_net(nets, name, size)
+        graph = repro_torch.compile(net, block=DSE_BLOCK).graph
+        taken = 0
+        for actor, spec in graph.actors.items():
+            if taken == C8_ACTORS or not spec.device_ok:
+                continue
+            try:
+                program = compile_partition(graph, [actor], block=DSE_BLOCK, device=dev)
+            except (AssertionError, GraphError):
+                continue
+            taken += 1
+            gen = torch.Generator(device=dev).manual_seed(taken)
+            ins = {f"{a}.{p}": (torch.randn(DSE_BLOCK, generator=gen, device=dev),
+                                torch.ones(DSE_BLOCK, dtype=torch.bool, device=dev))
+                   for (a, p, _dt) in program.in_ports}
+            state = program.init_state
+            graphed = GraphedStep(program.step, dev)
+
+            def eager(program=program, state=state, ins=ins):
+                return program.step(state, ins)
+
+            prof = profile_window(eager, 5)
+            row = dict(network=name, actor=actor, stateful=any(bool(v) for v in state.values()),
+                       kernels_per_call=prof["records"] / prof["calls"],
+                       device_busy_us=prof["device_busy_ms_per_call"] * 1e3,
+                       eager_host_us=host_us(eager))
+            replay = graphed(state, ins)
+            torch.cuda.synchronize()
+            same = all(bits_equal(a, b) for a, b in zip(leaves(replay), leaves(eager())))
+            if name in EXACT:
+                cpu = compile_partition(graph, [actor], block=DSE_BLOCK, device="cpu")
+                on_cpu = cpu.step(cpu.init_state,
+                                  {k: (v.cpu(), m.cpu()) for k, (v, m) in ins.items()})
+                same = same and all(bits_equal(a.cpu(), b)
+                                    for a, b in zip(leaves(replay), leaves(on_cpu)))
+            row.update(graph_host_us=host_us(lambda g=graphed, s=state, i=ins: g(s, i)),
+                       graph_bitwise=same, graph_errors=graphed.errors)
+            row["speedup"] = row["eager_host_us"] / row["graph_host_us"]
+            rows.append(row)
+            print("  C8 " + json.dumps(row), flush=True)
+            check(same, f"C8 {name}.{actor}: the CUDA graph's step != the eager step")
+            check(not graphed.errors, f"C8 {name}.{actor}: capture failed {graphed.errors}")
+    ratios = sorted(r["speedup"] for r in rows)
+    check(bool(rows), "C8: no unfused step measured")
+    summary = dict(partitions=len(rows), median_speedup=ratios[len(ratios) // 2],
+                   min_speedup=ratios[0], eager_host_us=sorted(r["eager_host_us"] for r in rows),
+                   graph_host_us=sorted(r["graph_host_us"] for r in rows))
+    print("  C8 summary: " + json.dumps(summary), flush=True)
+    return dict(rows=rows, summary=summary)
+
+
 def phase_explore(nets, card: str) -> dict:
     import repro_torch
     from repro_torch.core.cost_model import evaluate
@@ -2203,6 +2333,7 @@ def phase_explore(nets, card: str) -> dict:
     from repro_torch.kernels.stream_fused import kernel
 
     print("phase 12: the profile-guided partitioner (profile, MILP, explore)", flush=True)
+    c8 = unfused_step(nets)
     kernel.LAUNCHES = 0  # the count covers this phase's runs only
     rows, launches = {}, {}
     for name, size in DSE_SIZES.items():
@@ -2317,7 +2448,7 @@ def phase_explore(nets, card: str) -> dict:
     check(link.bandwidth_Bps > 0 and math.isfinite(link.latency_s), "device link fit")
     for name, row in rows.items():
         print("  " + json.dumps(row), flush=True)
-    return dict(rows=rows, launches=launches, multi=multi, link=link_row)
+    return dict(rows=rows, launches=launches, multi=multi, link=link_row, c8=c8)
 
 
 # ---------------------------------------------------------------------------
@@ -2588,6 +2719,211 @@ def phase_stream_serve(nets) -> dict:
                 rounds=rounds_total)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: SSM and MoE training through the kernels
+# ---------------------------------------------------------------------------
+
+# mamba2-130m at full depth; deepseek-moe-16b at 4 of its 28 layers: its
+# parameters, bf16 gradients and two float32 AdamW moments take about 12
+# bytes a parameter (7 GB a layer, 5 GB for the embedding and head), and the
+# functional update holds old and new moments at once
+TRAIN_KERNELS = {
+    "mamba2-130m": dict(layers=None, global_batch=8, seq_len=2048, steps=10, remat="block"),
+    "deepseek-moe-16b": dict(layers=4, global_batch=4, seq_len=2048, steps=10,
+                             remat="save_dispatch"),
+}
+TRAIN_OFF_TOL = 2e-2  # loss, and grad norm relative: one step against use_kernels="off"
+GMM_FWD_SHAPES = (("gate_up", 1408), ("down", 2048))  # f of the forward product at d 2048/1408
+
+
+def train_counts() -> dict:
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+
+    return {**lm_counts(), "moe_gmm_dx": gmm.DX_LAUNCHES}
+
+
+def zero_train_counts() -> None:
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+
+    zero_lm_counts()
+    gmm.DX_LAUNCHES = 0
+
+
+def loss_and_grads(params, cfg, batch) -> dict:
+    """One ``lm_loss`` forward and backward: the loss, the global gradient
+    norm, the kernels launched in the forward and in the backward (the
+    backward's include each block's recompute and, for ``moe_gmm``, dx),
+    and the peak device memory."""
+    from repro_torch.model import lm
+    from repro_torch.optim import global_norm
+    from repro_torch.pytree import tree_leaves
+
+    leaves = tree_leaves(params)
+    batch = {k: torch.from_numpy(v).to(leaves[0].device) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    loss, _ = lm.lm_loss(params, cfg, batch)
+    torch.cuda.synchronize()
+    fwd = train_counts()
+    grads = torch.autograd.grad(loss, leaves)
+    gn = float(global_norm(grads))
+    bwd = {k: v - fwd[k] for k, v in train_counts().items()}
+    return dict(loss=float(loss.detach()), grad_norm=gn, forward=fwd, backward=bwd,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def backward_pieces(arch: str, cfg, B: int, S: int) -> dict:
+    """Device ms of the new backwards' pieces a layer at the path's shape:
+    the SSD scan's forward kernel and the grouped matmul's pieces (its
+    forward kernel, the transposed weight copy, the dx kernel and the
+    float32-accumulated dW ``bmm``, for the gate/up and the down products)
+    from CUDA events around a CUDA graph's replays; the SSD backward (the
+    vjp of ``ssd_chunked``, recomputed: hundreds of plain kernels) on the
+    device behind a spin kernel (``queued_ms``), and a call's wall time
+    back to back from Python."""
+    from repro_torch.kernels.moe_gmm.ops import _dw
+    from repro_torch.model.ssm import SSDScan
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bf = torch.bfloat16
+    rows = {}
+    if cfg.ssm_state:
+        nh, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        x = torch.randn(B, S, nh, P, generator=gen, device="cuda", dtype=bf)
+        dt = torch.rand(B, S, nh, generator=gen, device="cuda") * 0.1 + 1e-3
+        A = -torch.rand(nh, generator=gen, device="cuda") * 15 - 1
+        Bm, Cm = (torch.randn(B, S, N, generator=gen, device="cuda", dtype=bf) for _ in range(2))
+        ins = [t.requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        y, _ = SSDScan.apply(*ins, cfg.ssm_chunk)
+        gy = torch.randn_like(y)
+        plain = [t.detach() for t in ins]
+        rows["ssd_fwd_ms"] = device_ms(lambda: SSDScan.apply(*plain, cfg.ssm_chunk), 5)
+        bwd = lambda: torch.autograd.grad(y, ins, gy, retain_graph=True)  # noqa: E731
+        rows["ssd_bwd_ms"] = queued_ms(bwd, 3, spin_ms=80.0)
+        rows["ssd_bwd_call_ms"] = call_ms(bwd, 3)
+        grads = torch.autograd.grad(y, ins, gy, retain_graph=True)
+        rows["ssd_bwd_finite"] = all(bool(torch.isfinite(g).all()) for g in grads)
+    if cfg.moe:
+        from repro_torch.kernels.moe_gmm.kernel import grouped_matmul_cuda
+        from repro_torch.model.moe import _capacity
+
+        E, d = cfg.num_experts, cfg.d_model
+        G, Nt = (1, B * S) if B * S <= 4096 else (B, S)
+        C = G * _capacity(Nt, cfg.experts_per_token, E, cfg.capacity_factor)
+        for tag, f in GMM_FWD_SHAPES:
+            k = d if tag == "gate_up" else cfg.moe_d_ff
+            xb = torch.randn(E, C, k, generator=gen, device="cuda", dtype=bf)
+            w = torch.randn(E, k, f, generator=gen, device="cuda", dtype=bf) * 0.02
+            dy = torch.randn(E, C, f, generator=gen, device="cuda", dtype=bf)
+            wt = w.transpose(1, 2).contiguous()
+            rows[f"gmm_{tag}"] = dict(
+                E=E, C=C, d=k, f=f,
+                fwd_ms=device_ms(lambda: grouped_matmul_cuda(xb, w), 5),
+                transpose_copy_ms=device_ms(lambda: w.transpose(1, 2).contiguous(), 5),
+                dx_ms=device_ms(lambda: grouped_matmul_cuda(dy, wt, dx=True), 5),
+                dw_ms=device_ms(lambda: _dw(xb, dy, w.dtype), 5),
+            )
+    print(f"  {arch} backward pieces a layer (ms): " + json.dumps(rows), flush=True)
+    return rows
+
+
+def phase_train_kernels() -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MIXER_ATTN
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.model import lm
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    print("phase 14: SSM and MoE training through the kernels", flush=True)
+    out = {}
+    for arch, spec in TRAIN_KERNELS.items():
+        cfg = dataclasses.replace(get_config(arch), remat=spec["remat"])
+        if spec["layers"]:
+            cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+        B, S, steps = spec["global_batch"], spec["seq_len"], spec["steps"]
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                      seed=0))
+        batches = [data.next_batch() for _ in range(steps)]
+        params = lm.init_model(cfg, 0, device="cuda")
+        row = dict(arch=arch, layers=cfg.num_layers, published_layers=get_config(arch).num_layers,
+                   global_batch=B, seq_len=S, remat=cfg.remat)
+
+        # one step's loss and grad norm on the same params and batch, against "off"
+        one = {"cuda": loss_and_grads(params, cfg, batches[0])}
+        off = dataclasses.replace(cfg, use_kernels="off")
+        one["off"] = loss_and_grads(params, off, batches[0])
+        if cfg.moe:
+            one["block"] = loss_and_grads(params, dataclasses.replace(cfg, remat="block"),
+                                          batches[0])
+        row["one_step"] = one
+        print(f"  {arch}: one step " + json.dumps(one), flush=True)
+        k, o = one["cuda"], one["off"]
+        check(abs(k["loss"] - o["loss"]) <= TRAIN_OFF_TOL,
+              f"{arch} train: loss {k['loss']} vs off {o['loss']}")
+        check(abs(k["grad_norm"] - o["grad_norm"]) <= TRAIN_OFF_TOL * abs(o["grad_norm"]),
+              f"{arch} train: grad norm {k['grad_norm']} vs off {o['grad_norm']}")
+        name = "moe_gmm" if cfg.moe else "ssd_scan"
+        check(k["forward"][name] > 0 and k["backward"][name] > 0,
+              f"{arch} train: {name} launches forward {k['forward'][name]} backward "
+              f"{k['backward'][name]}")
+        check(k["forward"]["rmsnorm"] > 0, f"{arch} train: rmsnorm never launched")
+        if cfg.moe:
+            check(k["backward"]["moe_gmm_dx"] > 0 and k["forward"]["moe_gmm_dx"] == 0,
+                  f"{arch} train: moe_gmm dx launches {k['backward']['moe_gmm_dx']}")
+            check(k["loss"] == one["block"]["loss"],
+                  f"{arch} train: save_dispatch loss {k['loss']} != block's "
+                  f"{one['block']['loss']}")
+            check(k["forward"] == one["block"]["forward"],
+                  f"{arch} train: save_dispatch's forward launches differ from block's")
+        if any(kind.mixer == MIXER_ATTN for kind in cfg.pattern()):
+            check(k["forward"]["flash_fwd"] > 0 and k["backward"]["flash_bwd_dq"] > 0,
+                  f"{arch} train: flash kernels never launched")
+        del one
+
+        # the training run: run_training's step on its own batches
+        opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+        opt_state = init_opt_state(params, opt)
+        step = make_train_step(cfg, opt)
+        losses, seconds = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_train_counts()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batches[i])
+            losses.append(float(m["loss"]))  # waits for the step
+            seconds.append(time.perf_counter() - t0)
+        launches = train_counts()
+        steady = sorted(seconds[1:])
+        row.update(losses=losses, step_seconds=seconds, median_step_s=steady[len(steady) // 2],
+                   launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+                   train_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        row["tokens_per_s"] = B * S / row["median_step_s"]
+        print(f"  {arch}: " + json.dumps({k: row[k] for k in (
+            "layers", "losses", "median_step_s", "tokens_per_s", "launches_per_step",
+            "train_peak_gb")}), flush=True)
+        check(all(math.isfinite(x) for x in losses), f"{arch} train: non-finite loss")
+        check(np.mean(losses[-3:]) < np.mean(losses[:3]), f"{arch} train: loss did not fall")
+        check(launches[name] > 0, f"{arch} train: {name} never launched in the run")
+
+        prof = profile_window(lambda: step(params, opt_state, batches[0]), 3)
+        check_window(prof, f"{arch} train: profiled window")
+        row["profiled"] = prof
+        print(f"  {arch}: " + json.dumps({"profiled": prof}), flush=True)
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+        row["pieces"] = backward_pieces(arch, cfg, B, S)
+        if cfg.ssm_state:
+            check(row["pieces"]["ssd_bwd_finite"], f"{arch}: SSD backward not finite")
+        torch.cuda.empty_cache()
+        out[arch] = row
+    return out
+
+
 def build_all(programs) -> None:
     """Build every kernel library at once, one nvcc per source in parallel:
     the five sources of ``csrc/`` and the stream kernel generated for each of
@@ -2637,6 +2973,14 @@ def build_all(programs) -> None:
         check_ptxas(stream.BUILD_LOG[c.library], "stream_fused_kernel", lambda fn: True)
 
 
+def timed(phase, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"  [{phase.__name__}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2654,20 +2998,21 @@ def main() -> int:
     ties = ties_program()
     build_all({**programs, "ties": ties})
 
-    rows = phase_kernel(programs, ties)
-    launches = phase_e2e(NETWORKS)
-    flash_rows = phase_flash()
-    train = phase_train()
-    norm_rows, ssd_rows = phase_norm_ssd()
-    serve = phase_serve()
-    gmm_rows = phase_gmm()
-    moe = phase_moe_serve()
+    rows = timed(phase_kernel, programs, ties)
+    launches = timed(phase_e2e, NETWORKS)
+    flash_rows = timed(phase_flash)
+    train = timed(phase_train)
+    norm_rows, ssd_rows = timed(phase_norm_ssd)
+    serve = timed(phase_serve)
+    gmm_rows = timed(phase_gmm)
+    moe = timed(phase_moe_serve)
     torch.cuda.empty_cache()  # phase 10's largest input and plain version take ~25 GB
-    quant_rows = phase_quant()
-    compress = phase_compress()
+    quant_rows = timed(phase_quant)
+    compress = timed(phase_compress)
     torch.cuda.empty_cache()
-    explore = phase_explore(NETWORKS, card)
-    stream_serve = phase_stream_serve(NETWORKS)
+    explore = timed(phase_explore, NETWORKS, card)
+    stream_serve = timed(phase_stream_serve, NETWORKS)
+    train_kernels = timed(phase_train_kernels)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
@@ -2731,12 +3076,23 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"], library=row["library"],
             design=designs[name],
         ))
+    def train_path(arch, name, dx=False):
+        run = train_kernels[arch]
+        per = {"forward": run["one_step"]["cuda"]["forward"][name],
+               "backward": run["one_step"]["cuda"]["backward"][name]}
+        if dx:
+            per["backward_dx"] = run["one_step"]["cuda"]["backward"]["moe_gmm_dx"]
+        return dict(arch=arch, layers=run["layers"], run=run["launches"][name], one_step=per)
+
     for name, rows_, main_shape, path in (
         ("rmsnorm", norm_rows, "prefill768_bf16", "src/repro/kernels/rmsnorm/kernel.py:24"),
         ("ssd_scan", ssd_rows, "path", "src/repro/kernels/ssd_scan/kernel.py:72"),
     ):
         row = rows_[main_shape]
         extra = dict(kernels_per_call=row["kernels_per_call"]) if name == "ssd_scan" else {}
+        if name == "ssd_scan":
+            extra["launches_by_path"] = dict(serve=serve["launches"][name],
+                                             train=train_path("mamba2-130m", name))
         record["kernels"].append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
             replaces=path, launches=serve["launches"][name],
@@ -2752,6 +3108,8 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in gmm_rows.values()),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs["moe_gmm"],
+        launches_by_path=dict(serve=moe["launches"]["moe_gmm"],
+                              train=train_path("deepseek-moe-16b", "moe_gmm", dx=True)),
     ))
     row = quant_rows["embed"]
     record["kernels"].append(dict(

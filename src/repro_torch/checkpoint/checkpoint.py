@@ -139,7 +139,7 @@ def restore(
     """Restore into the structure of ``like``: each leaf on the device and in
     the dtype of ``like``'s leaf.  One card: ``shardings`` must be None."""
     if shardings is not None:
-        raise NotImplementedError("sharded restore is not ported (ROADMAP A8, distributed)")
+        raise NotImplementedError("sharded restore is not ported (ROADMAP A8b, sharding)")
     d = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
     out = []

@@ -12,8 +12,11 @@
 Port of ``repro/core/profiler.py``.  ``profile_device`` compiles each
 device-eligible actor as a single-actor partition on a torch device (default
 ``cuda:0``) and waits with ``torch.cuda.synchronize`` where the reference
-calls ``jax.block_until_ready`` (nothing to wait for on the CPU);
-``measure_device_link`` times pinned host tensors copied to the card with
+calls ``jax.block_until_ready`` (nothing to wait for on the CPU); on the
+card a stateless partition's step is timed as one CUDA-graph replay
+(``runtime/device_runtime.py::GraphedStep``), the counterpart of the
+reference's jitted dispatch, where eager per-op launches would price launch
+overhead (ROADMAP C8); ``measure_device_link`` times pinned host tensors copied to the card with
 ``non_blocking=True`` and a synchronisation, as PLink stages, and raises
 without CUDA.  The other functions are copies.
 """
@@ -118,7 +121,7 @@ def profile_device(
     them as host-only), which beats hanging a live server's repartition
     loop on a slow compile.  ``device`` is the torch device the partitions
     run on (default ``cuda:0``)."""
-    from repro_torch.runtime.device_runtime import compile_partition
+    from repro_torch.runtime.device_runtime import GraphedStep, compile_partition
 
     device = torch.device("cuda:0" if device is None else device)
 
@@ -150,6 +153,12 @@ def profile_device(
                 torch.cuda.synchronize(_dev)
 
         state = program.init_state
+        step = program.step
+        if dev.type == "cuda" and not any(state.values()):
+            # one replay of the step's kernels, the counterpart of the
+            # reference's jitted dispatch (ROADMAP C8); stateful steps
+            # stay eager
+            step = GraphedStep(program.step, dev)
         # total tokens this actor processes over the workload
         in_keys = [
             k for k in prof.tokens
@@ -166,13 +175,13 @@ def profile_device(
             k: (v[0][: block // 2], v[1][: block // 2]) for k, v in ins.items()
         }
         for payload in (ins, half):
-            program.step(state, payload)
+            step(state, payload)
             wait()
 
         def timed(payload):
             t0 = time.perf_counter_ns()
             for _ in range(repeats):
-                program.step(state, payload)
+                step(state, payload)
             wait()
             return (time.perf_counter_ns() - t0) / repeats / 1e9
 

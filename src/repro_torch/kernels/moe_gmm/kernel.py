@@ -18,7 +18,8 @@ header note says what bounds the kernel and how the design answers that.
   (E, d, f)``; bfloat16 needs ``d % 8 == 0``, ``f % 8 == 0`` and 16-byte
   aligned bases, which the kernel's tensor maps require), allocates the
   output, launches on the current stream and raises on a non-zero CUDA
-  error.  ``LAUNCHES`` counts the launches and nothing else.
+  error.  ``LAUNCHES`` counts the launches and nothing else; ``DX_LAUNCHES``
+  those of them made for a backward's ``dx``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
 
 LAUNCHES = 0
+DX_LAUNCHES = 0  # the launches of LAUNCHES made for a backward's dx
 BUILD_SECONDS: Optional[float] = None
 BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
@@ -123,10 +125,12 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int]:
     return E, C, d, f
 
 
-def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, dx: bool = False) -> torch.Tensor:
     """``y[e] = x[e] @ w[e]`` for ``x (E, C, d)``, ``w (E, d, f)`` in ONE
-    kernel launch; float32 accumulation, one rounding to ``x.dtype``."""
-    global LAUNCHES
+    kernel launch; float32 accumulation, one rounding to ``x.dtype``.
+    ``dx`` marks a launch for a backward's ``dy . w^T``: it counts in
+    ``DX_LAUNCHES`` as well as in ``LAUNCHES``."""
+    global LAUNCHES, DX_LAUNCHES
     E, C, d, f = check_inputs(x, w)
     lib = _library(x.device)
     y = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
@@ -140,4 +144,5 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             raise RuntimeError(f"moe_gmm launch failed: CUDA error {err}")
         with _lock:
             LAUNCHES += 1
+            DX_LAUNCHES += dx
     return y

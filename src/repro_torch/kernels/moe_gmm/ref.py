@@ -8,6 +8,7 @@ import torch
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``(E, C, d) x (E, d, f) -> (E, C, f)``: float32 products and sums,
-    one rounding to ``x.dtype``."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    """``(E, C, d) x (E, d, f) -> (E, C, f)``: float32 products and sums
+    (float64 for float64 inputs), one rounding to ``x.dtype``."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    return torch.einsum("ecd,edf->ecf", x.to(f32), w.to(f32)).to(x.dtype)

@@ -4,9 +4,10 @@
 heads into ``(B*nh, S, P)``, pre-scales ``da = dt * A`` and runs the chunked
 scan: the CUDA kernel (``kernel.py``) for CUDA tensors, which raises on what
 it does not take, and the plain version (``ref.ssd_scan_ref``) for CPU
-tensors; nothing falls back from one to the other.  It is forward only, as
-the reference's kernel is (no VJP): the SSM mixer refuses the kernel path
-under autograd.
+tensors; nothing falls back from one to the other.  The kernel is a forward,
+as the reference's is (no VJP); the SSM mixer trains through it with
+``model/ssm.py::SSDScan``, whose backward is the vjp of the plain
+``ssd_chunked`` (the reference's own backward).
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ def ssd_scan(
     float32)``."""
     B, S, nh, P = x.shape
     xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
-    dtf = dt.transpose(1, 2).reshape(B * nh, S).float().contiguous()
-    daf = dtf * A.float().repeat(B)[:, None]
+    f32 = torch.promote_types(x.dtype, torch.float32)  # float64 stays, for gradcheck
+    dtf = dt.transpose(1, 2).reshape(B * nh, S).to(f32).contiguous()
+    daf = dtf * A.to(f32).repeat(B)[:, None]
     if x.device.type == "cuda":
         y, state = kernel.ssd_scan_cuda(
             xf, dtf, daf, B_.contiguous(), C_.contiguous(), nheads=nh, chunk=chunk

@@ -2,8 +2,9 @@
 ``repro/kernels/ssd_scan/kernel.py``) and the reference's sequential oracle.
 
 * :func:`ssd_scan_ref` is the kernel's math: the chunked dual form, one chunk
-  after another with the ``(P, N)`` state carried across, all float32 inside,
-  ``y`` in ``x.dtype`` and the final state in float32.  The CUDA kernel is
+  after another with the ``(P, N)`` state carried across, all float32 inside
+  (float64 for float64 inputs), ``y`` in ``x.dtype`` and the final state in
+  float32.  The CUDA kernel is
   held to it on the card; ``ops.ssd_scan`` runs it for CPU tensors.
 * :func:`ssd_ref` is a port of ``repro/kernels/ssd_scan/ref.py``: the exact
   token-by-token recurrence, for the tests.
@@ -30,10 +31,10 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torch.
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk {Q}")
-    f32 = torch.float32
-    Bh = B_.float().repeat_interleave(nheads, dim=0)  # (BH, S, N)
-    Ch = C_.float().repeat_interleave(nheads, dim=0)
-    xf, dtf, daf = x.float(), dt.float(), da.float()
+    f32 = torch.promote_types(x.dtype, torch.float32)  # float64 stays (gradcheck)
+    Bh = B_.to(f32).repeat_interleave(nheads, dim=0)  # (BH, S, N)
+    Ch = C_.to(f32).repeat_interleave(nheads, dim=0)
+    xf, dtf, daf = x.to(f32), dt.to(f32), da.to(f32)
     rows = torch.arange(Q, device=x.device)
     causal = rows[:, None] >= rows[None, :]
     state = torch.zeros((BH, P, N), dtype=f32, device=x.device)

@@ -4,7 +4,7 @@ Wires together: config -> data-pipeline actors (host threads) -> the train
 step on the card (``launch/steps.py``; attention through the CUDA flash
 kernels unless ``cfg.use_kernels == "off"``) -> async checkpointing ->
 fault-tolerant supervisor.  There is no mesh and no sharding context: the
-sharding rules wait for ROADMAP A8 (distributed).
+sharding rules wait for ROADMAP A8b.
 
 ``device=None`` means ``cuda:0`` and raises when CUDA is not available;
 ``device="cpu"`` runs everything on the CPU with the kernels' plain versions

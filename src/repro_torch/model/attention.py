@@ -13,7 +13,10 @@ condition for its Pallas path (no window, no cache to return):
 
 Decode (a cache given) is the reference's plain branch: scalar or per-slot
 ``(B,)`` write positions, the window mask and the ring cache, float32 scores
-and ``p`` rounded to the cache type before ``P.V``.
+and ``p`` rounded to the cache type before ``P.V``.  With the reference's
+experiment switch ``REPRO_BF16_DOTS=1`` (``layers.bf16_dots``) the scores
+are rounded to the operands' type before the float32 softmax, as its QK
+einsum then emits bf16.
 
 The products of the decode and of the chunked path keep their bf16 operands
 and come out in float32, as the reference's ``preferred_element_type=
@@ -34,7 +37,14 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.model.layers import ParamDef, apply_rope, dense, rms_norm, rope_angles
+from repro_torch.model.layers import (
+    ParamDef,
+    apply_rope,
+    bf16_dots,
+    dense,
+    rms_norm,
+    rope_angles,
+)
 
 NEG_INF = -1e30
 KERNEL_MODES = ("off", "cuda")
@@ -170,7 +180,10 @@ def _decode(params, q, k_new, v_new, cache, write_pos, positions, window: int,
             keep &= cols > pos - window
         keep = keep[None, None, None, :]
     plain = cfg.use_kernels == "off"
-    scores = _cache_scores(q.reshape(B, kv, G, hd), ck, plain) * scale
+    scores = _cache_scores(q.reshape(B, kv, G, hd), ck, plain)
+    if bf16_dots():  # the product emitted in the operands' type, then float32
+        scores = scores.to(torch.promote_types(q.dtype, ck.dtype)).float()
+    scores = scores * scale
     scores = torch.where(keep, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = _cache_mix(p, cv, plain).to(cv.dtype)

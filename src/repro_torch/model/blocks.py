@@ -55,6 +55,26 @@ def block_fwd(
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Returns (x, new_cache, aux); aux is empty unless the FFN is MoE."""
     aux: Dict[str, torch.Tensor] = {}
+    x, new_cache = block_mixer(
+        params, x, kind, cfg, positions, cache=cache, write_pos=write_pos, window=window,
+        ring=ring, return_cache=return_cache,
+    )
+    if kind.ffn != FFN_NONE:
+        h = rms_norm(x, params["norm_ffn"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
+        if kind.ffn == FFN_DENSE:
+            f = swiglu(h, params["ffn"]["w_gate"], params["ffn"]["w_up"],
+                       params["ffn"]["w_down"])
+        else:
+            f, aux = moe_ffn(params["ffn"], h, cfg)
+        x = x + f
+    return x, new_cache, aux
+
+
+def block_mixer(params, x: torch.Tensor, kind: BlockKind, cfg, positions: torch.Tensor, *,
+                cache=None, write_pos=None, window: int = 0, ring: bool = False,
+                return_cache: bool = False) -> Tuple[torch.Tensor, Any]:
+    """The block's first half: ``x + mixer(norm(x))``.  Returns (x,
+    new_cache)."""
     h = rms_norm(x, params["norm_mixer"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
     if kind.mixer == MIXER_ATTN:
         y, new_cache = attention(
@@ -70,13 +90,4 @@ def block_fwd(
             params["mixer"], h, cfg, cache=cache,
             return_cache=return_cache or cache is not None,
         )
-    x = x + y
-    if kind.ffn != FFN_NONE:
-        h = rms_norm(x, params["norm_ffn"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
-        if kind.ffn == FFN_DENSE:
-            f = swiglu(h, params["ffn"]["w_gate"], params["ffn"]["w_up"],
-                       params["ffn"]["w_down"])
-        else:
-            f, aux = moe_ffn(params["ffn"], h, cfg)
-        x = x + f
-    return x, new_cache, aux
+    return x + y, new_cache

@@ -20,19 +20,25 @@ kernel (``kernels/rmsnorm``; its plain version on CPU tensors).
 (:func:`resolve_device`), and raises when CUDA is not available; the tests
 pass ``device="cpu"``.
 
-Not ported: the ``REPRO_BF16_DOTS`` experiment switch of ``dense``.
+``REPRO_BF16_DOTS=1`` is the reference's experiment switch
+(:func:`bf16_dots`, read at each call): its dots then emit the operands' type
+instead of float32.  It rounds the decode's QK scores (``model/attention.
+py``); in :func:`dense` it changes nothing, since the port's product
+already comes out in ``x.dtype`` from a float32 accumulation, rounded once,
+which is the reference's value under either setting.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Tuple, Union
 
 import torch
 
 from repro_torch.paramdef import ParamDef, is_paramdef
-from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -110,14 +116,6 @@ def init_params(defs: PyTree, seed: int = 0, default_dtype="bfloat16",
     return tree_unflatten(treedef, out)
 
 
-def records_grad(params, x: torch.Tensor) -> bool:
-    """Whether autograd records a function of ``params`` (a tree) and ``x``:
-    a forward-only kernel refuses to run then."""
-    return torch.is_grad_enabled() and (
-        x.requires_grad or any(p.requires_grad for p in tree_leaves(params))
-    )
-
-
 # ---------------------------------------------------------------------------
 # Primitives
 # ---------------------------------------------------------------------------
@@ -166,11 +164,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def bf16_dots() -> bool:
+    """The reference's ``REPRO_BF16_DOTS=1`` switch, read at call time."""
+    return os.environ.get("REPRO_BF16_DOTS") == "1"
+
+
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Matmul over the last axis of ``x``, result in ``x.dtype``, accumulated
     in float32: a float32 product for float32 operands; for bfloat16 ones
     the card's matrix product accumulates in float32 and rounds once to the
-    result type, which is the reference's f32 dot followed by the cast."""
+    result type, which is the reference's f32 dot followed by the cast.
+    Under ``REPRO_BF16_DOTS=1`` the reference's dot emits ``x.dtype`` (mixed
+    types promote to float32 first): the same values, so the switch takes no
+    branch here."""
     if x.dtype != w.dtype:
         return torch.matmul(x.float(), w.float()).to(x.dtype)
     return torch.matmul(x, w)

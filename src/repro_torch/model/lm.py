@@ -6,11 +6,20 @@ packages share one parameter tree (``model/convert.py`` carries weights
 across).  The forward unbinds each stacked leaf once and runs the blocks in a
 Python loop (the reference's ``lax.scan``); with ``remat="block"`` each block
 runs under ``torch.utils.checkpoint`` and is recomputed in the backward pass,
-as under ``jax.checkpoint`` — the attention kernel's forward runs again there.
+as under ``jax.checkpoint`` — the kernels' forwards run again there.  With
+``remat="save_dispatch"`` an MoE block runs as two checkpoints, up to the
+expert buffer and from it, so that the buffer is saved and everything else
+recomputed: the reference's ``save_only_these_names("moe_dispatch")``.  The
+checkpoints are non-reentrant, so the autograd graph is the same under both
+policies and so are the gradients, bit for bit; other blocks take
+``"block"``.
 
 The CE loss is computed in 512-token sequence chunks, each recomputed in the
 backward pass, with the head matmul inside, so the (tokens x vocab) float32
-logits never exist for the whole sequence at once.
+logits never exist for the whole sequence at once.  The head product keeps
+half-precision operands on the card and accumulates into a float32 result
+(``head_logits``), as the reference's ``preferred_element_type=float32``
+dot; its backward keeps the float32 products of the float32 cotangent.
 
 Serving keeps the decode cache stacked per period position, as the
 parameters are: a tree of ``(num_periods, ...)`` leaves per pattern position.
@@ -25,8 +34,7 @@ The forward sums the MoE blocks' aux losses (load balance, router z-loss)
 per period and then over periods, as the reference's ``_acc_aux`` and scan
 do, in every branch (collecting caches, without gradients, recomputed).
 
-Not ported yet: ``batch_chunks > 1`` and the ``save_dispatch`` remat policy
-(MoE training) raise (ROADMAP A8).
+Not ported yet: ``batch_chunks > 1`` raises (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -37,8 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.model.blocks import block_defs, block_fwd, init_block_cache
+from repro_torch.configs.base import FFN_MOE, ModelConfig
+from repro_torch.model.blocks import block_defs, block_fwd, block_mixer, init_block_cache
 from repro_torch.model.layers import (
     ParamDef,
     dense,
@@ -49,9 +57,11 @@ from repro_torch.model.layers import (
     stack_defs,
     torch_dtype,
 )
+from repro_torch.model.moe import moe_combine, moe_dispatch
 from repro_torch.pytree import tree_flatten, tree_unflatten
 
 PyTree = Any
+REMAT_POLICIES = ("block", "none", "save_dispatch")
 
 
 # ---------------------------------------------------------------------------
@@ -137,10 +147,10 @@ def forward_hidden(
     if cfg.batch_chunks > 1:
         raise NotImplementedError(
             "batch_chunks > 1 (in-block batch chunking) is not ported: it only "
-            "pays with sharded weights (ROADMAP A8, distributed)"
+            "pays with sharded weights (ROADMAP A8b, sharding)"
         )
-    if cfg.remat not in ("block", "none"):
-        raise NotImplementedError(f"remat policy {cfg.remat!r} is not ported (ROADMAP A8)")
+    if cfg.remat not in REMAT_POLICIES:
+        raise NotImplementedError(f"remat policy {cfg.remat!r} is not one of {REMAT_POLICIES}")
     x = _embed_in(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -157,6 +167,21 @@ def forward_hidden(
 
         return f
 
+    def dispatch(kind):
+        # block_fwd of an MoE block up to the expert buffer, then from it
+        def f(p, x):
+            x, _ = block_mixer(p, x, kind, cfg, positions)
+            h = rms_norm(x, p["norm_ffn"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
+            buf, route, aux = moe_dispatch(p["ffn"], h, cfg)
+            return x, h, buf, route, aux
+
+        return f
+
+    def combine(p, x, h, buf, route):
+        return x + moe_combine(p["ffn"], h, buf, route, cfg)
+
+    remat = dict(use_reentrant=False, preserve_rng_state=False)
+
     caches: Dict[str, List[Any]] = {f"pos{i}": [] for i in range(len(pattern))}
     period_aux = []
     for period in range(cfg.num_periods):
@@ -168,9 +193,12 @@ def forward_hidden(
                 caches[f"pos{i}"].append(cache)
             elif cfg.remat == "none" or not torch.is_grad_enabled():
                 x, aux = block(kind)(p, x)
+            elif cfg.remat == "save_dispatch" and kind.ffn == FFN_MOE:
+                # two checkpoints: the buffer between them is saved
+                x, h, buf, route, aux = checkpoint(dispatch(kind), p, x, **remat)
+                x = checkpoint(combine, p, x, h, buf, route, **remat)
             else:
-                x, aux = checkpoint(block(kind), p, x, use_reentrant=False,
-                                    preserve_rng_state=False)
+                x, aux = checkpoint(block(kind), p, x, **remat)
             aux_tot = _acc_aux(aux_tot, aux)
         period_aux.append(aux_tot)
     aux = {k: torch.sum(torch.stack([a[k] for a in period_aux]), dim=0) for k in AUX_KEYS}
@@ -193,9 +221,45 @@ def _stack(trees: List[PyTree]) -> PyTree:
 # ---------------------------------------------------------------------------
 
 
-def _ce_chunk(h, labels, head_w, vmask):
+def _head_bwd(h, w, g):
+    """The head product's gradients from the float32 cotangent ``g``: float32
+    products of it, each rounded once to its operand's type (what JAX's
+    transpose of the float32-accumulated dot computes)."""
+    dh = torch.matmul(g, w.float().t()).to(h.dtype)
+    dw = torch.matmul(h.float().t(), g).to(w.dtype)
+    return dh, dw
+
+
+class _HeadF32(torch.autograd.Function):
+    """``h (R, d) @ w (d, V)`` with a float32 result from half-precision
+    operands read as they lie (``torch.mm(..., out_dtype=float32)``, CUDA
+    only); the backward is :func:`_head_bwd`."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _head_bwd(*ctx.saved_tensors, g)
+
+
+def head_logits(h: torch.Tensor, w: torch.Tensor, kernels: str) -> torch.Tensor:
+    """``(..., d) x (d, Vp)`` -> float32 logits, the reference's dot with
+    ``preferred_element_type=float32``.  Half-precision CUDA operands under
+    ``kernels != "off"`` go through :class:`_HeadF32`; CPU tensors (the call
+    has no CPU kernel), float32 and ``"off"`` cast to float32 first, which
+    computes the same product."""
+    if h.is_cuda and h.dtype == w.dtype and h.dtype in (torch.bfloat16, torch.float16) \
+            and kernels != "off":
+        return _HeadF32.apply(h.reshape(-1, h.shape[-1]), w).reshape(*h.shape[:-1], -1)
+    return torch.matmul(h.float(), w.float())
+
+
+def _ce_chunk(h, labels, head_w, vmask, kernels):
     """(sum of token CE, count of valid tokens) over one sequence chunk."""
-    logits = torch.matmul(h.float(), head_w.float()) + vmask
+    logits = head_logits(h, head_w, kernels) + vmask
     lse = torch.logsumexp(logits, dim=-1)
     lab = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
     valid = (labels >= 0).float()
@@ -217,7 +281,7 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     for c0 in range(0, S, chunk):
         t, n = checkpoint(
             _ce_chunk, hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head_w, vmask,
-            use_reentrant=False, preserve_rng_state=False,
+            cfg.use_kernels, use_reentrant=False, preserve_rng_state=False,
         )
         tot, cnt = tot + t, cnt + n
     ce = tot / cnt.clamp_min(1.0)
@@ -262,7 +326,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _logits(h: torch.Tensor, params, cfg) -> torch.Tensor:
     """(B, d) hidden -> (B, Vp) float32 logits of the bf16/f32 values, masked."""
-    return torch.matmul(h.float(), _head_w(params).float()) + _vocab_mask(cfg, h.device)
+    return head_logits(h, _head_w(params), cfg.use_kernels) + _vocab_mask(cfg, h.device)
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, embeds=None):

@@ -30,9 +30,17 @@ choice:
 The expert products are ``grouped_matmul`` (the CUDA kernel on CUDA tensors,
 its plain version on CPU tensors) under ``cfg.use_kernels == "cuda"`` and the
 plain batched matmul under ``"off"``; both round the gate and up products to
-the activation type before ``silu(gate) * up``, as the reference does.  The
-kernel is forward only: under autograd the ``"cuda"`` path raises (MoE
-training, ROADMAP A8); ``"off"`` trains through plain ops.
+the activation type before ``silu(gate) * up``, as the reference does.
+``grouped_matmul`` is differentiable (``kernels/moe_gmm/ops.py``: dx through
+the kernel on the transposed weights, dw as one float32-accumulated
+``bmm``), so both modes train.
+
+``moe_ffn`` is ``moe_dispatch`` (router, aux losses, the dispatch into the
+expert buffer) followed by ``moe_combine`` (the expert products, the combine
+and the shared experts): the ``save_dispatch`` remat policy
+(``model/lm.py``) checkpoints the two halves apart, so that the buffer
+between them is saved (the reference's ``checkpoint_name(buf,
+"moe_dispatch")``).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.model.layers import ParamDef, dense, mlp_defs, records_grad, silu, swiglu
+from repro_torch.model.layers import ParamDef, dense, mlp_defs, silu, swiglu
 
 
 def moe_defs(cfg) -> Dict[str, ParamDef]:
@@ -160,13 +168,10 @@ def _aux_losses(probs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     return E * torch.sum(importance * load, dim=-1)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, d) -> (y, aux)."""
-    if cfg.use_kernels == "cuda" and records_grad(params, x):
-        raise NotImplementedError(
-            "the grouped-matmul kernel is forward only: MoE training needs its backward "
-            "(ROADMAP A8, MoE training); use_kernels='off' trains through the plain path"
-        )
+def moe_dispatch(params, x: torch.Tensor, cfg):
+    """x: (B, S, d) -> (buf (E, G*C, d), route, aux): ``route`` holds each
+    token's k buffer rows, whether each was kept, and its gates, as
+    ``_group_combine`` reads them."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
 
@@ -179,12 +184,23 @@ def moe_ffn(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch
     cap = _capacity(N, k, E, cfg.capacity_factor)
     p_g = probs.reshape(G, N, E)
     buf, meta = _group_dispatch(x.reshape(G, N, d), p_g, k, cap)
-    out = _expert_ffn(params, buf, cfg.use_kernels)
-    y = _group_combine(out, meta).reshape(B, S, d)
     balance = torch.mean(_aux_losses(p_g, meta[3]))
+    aux = {"moe_balance": balance.float(), "moe_zloss": z_loss.float()}
+    return buf, meta[:3], aux
 
+
+def moe_combine(params, x: torch.Tensor, buf: torch.Tensor, route, cfg) -> torch.Tensor:
+    """The expert products on ``buf``, each token's rows combined, plus the
+    shared experts on ``x`` (B, S, d) -> (B, S, d)."""
+    out = _expert_ffn(params, buf, cfg.use_kernels)
+    y = _group_combine(out, route).reshape(x.shape)
     if cfg.num_shared_experts:
         sh = params["shared"]
         y = y + swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
-    aux = {"moe_balance": balance.float(), "moe_zloss": z_loss.float()}
-    return y, aux
+    return y
+
+
+def moe_ffn(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (y, aux)."""
+    buf, route, aux = moe_dispatch(params, x, cfg)
+    return moe_combine(params, x, buf, route, cfg), aux

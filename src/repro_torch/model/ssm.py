@@ -8,11 +8,10 @@ carried state.  Decode is the exact single-step recurrence on the SSM state.
 
   * ``"off"``  — :func:`ssd_chunked`, the reference's plain path, kept
     exactly (its ``w.astype(xc.dtype)`` rounding included);
-  * ``"cuda"`` — ``kernels.ssd_scan.ssd_scan``: the CUDA kernel on CUDA
-    tensors, its plain version on CPU tensors.  The kernel is forward only,
-    as the reference's is, so this mode raises ``NotImplementedError`` when a
-    gradient is being recorded (SSM training needs an SSD backward: ROADMAP
-    A8) and never falls back to the plain path.
+  * ``"cuda"`` — :class:`SSDScan`: the forward is ``kernels.ssd_scan.
+    ssd_scan`` (the CUDA kernel on CUDA tensors, its plain version on CPU
+    tensors, never a fallback between them), the backward the vjp of
+    :func:`ssd_chunked`, as the reference's (it has no backward kernel).
 
 The gated norm runs through ``layers.rms_norm`` in the same mode.  The
 softplus of the step sizes is ``logaddexp(x, 0)``, the reference's
@@ -27,7 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.model.layers import ParamDef, dense, records_grad, rms_norm, silu
+from repro_torch.model.layers import ParamDef, dense, rms_norm, silu
 
 
 def ssm_defs(cfg) -> Dict[str, ParamDef]:
@@ -84,13 +83,20 @@ def ssd_chunked(
     chunk: int,
     state0: Optional[torch.Tensor] = None,  # (B, nh, hd, ds)
 ):
-    """Chunked SSD.  Returns (y (B,S,nh,hd), final_state (B,nh,hd,ds))."""
+    """Chunked SSD.  Returns (y (B,S,nh,hd), final_state (B,nh,hd,ds)).
+
+    Float32 inside, as the reference (float64 for float64 inputs, which
+    ``torch.autograd.gradcheck`` needs).  The decay above the diagonal is
+    selected away before the exponential as well as after it: ``exp`` of
+    those (positive) segment sums overflows over a long chunk, and its
+    gradient, 0 * inf, would be NaN where the reference's vjp is; the
+    forward is the reference's bit for bit."""
     B, S, nh, hd = x.shape
     ds = B_.shape[-1]
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"ssd_chunked: S={S} is not a multiple of the chunk {chunk}")
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)
     state = state0 if state0 is not None else torch.zeros(
         (B, nh, hd, ds), dtype=f32, device=x.device
     )
@@ -99,29 +105,62 @@ def ssd_chunked(
     ys = []
     for c0 in range(0, S, chunk):
         xc = x[:, c0:c0 + chunk]  # (B,Q,nh,hd)
-        dtc = dt[:, c0:c0 + chunk].float()  # (B,Q,nh)
+        dtc = dt[:, c0:c0 + chunk].to(f32)  # (B,Q,nh)
         bc, cc = B_[:, c0:c0 + chunk], C_[:, c0:c0 + chunk]  # (B,Q,ds)
         da = dtc * A  # (B,Q,nh), negative
         a_cs = torch.cumsum(da, dim=1)  # inclusive cumsum
         # intra-chunk (dual quadratic form)
         seg = a_cs[:, :, None, :] - a_cs[:, None, :, :]  # (B,Q,K,nh): sum_{k+1..q}
-        L = torch.where(causal, torch.exp(seg), 0.0)  # (B,Q,K,nh)
-        scores = torch.einsum("bqn,bkn->bqk", cc.float(), bc.float())
+        L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)  # (B,Q,K,nh)
+        scores = torch.einsum("bqn,bkn->bqk", cc.to(f32), bc.to(f32))
         w = scores[:, :, :, None] * L * dtc[:, None, :, :]  # (B,Q,K,nh)
-        y_diag = torch.einsum("bqkh,bkhp->bqhp", w.to(xc.dtype).float(), xc.float())
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", w.to(xc.dtype).to(f32), xc.to(f32))
         # contribution of the carried state
-        y_inter = torch.einsum("bqn,bhpn->bqhp", cc.float(), state) * torch.exp(
+        y_inter = torch.einsum("bqn,bhpn->bqhp", cc.to(f32), state) * torch.exp(
             a_cs
         )[:, :, :, None]
         # state update
         decay_to_end = torch.exp(a_cs[:, -1:, :] - a_cs)  # (B,Q,nh)
         state_in = torch.einsum(
-            "bkh,bkn,bkhp->bhpn", dtc * decay_to_end, bc.float(), xc.float()
+            "bkh,bkn,bkhp->bhpn", dtc * decay_to_end, bc.to(f32), xc.to(f32)
         )
         state = state * torch.exp(a_cs[:, -1])[:, :, None, None] + state_in
         ys.append((y_diag + y_inter).to(x.dtype))
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     return y, state
+
+
+class SSDScan(torch.autograd.Function):
+    """The chunked scan with ``state0 = None``, differentiable.  Forward:
+    ``kernels.ssd_scan.ops.ssd_scan`` (the CUDA kernel on CUDA tensors,
+    raising on what it does not take; its plain version on CPU tensors).
+    Backward: the vjp of :func:`ssd_chunked`, recomputed from the saved
+    inputs, which is the reference's own backward (JAX differentiates
+    ``ssd_chunked``); a ``None`` cotangent of the final state counts as
+    zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, chunk: int):
+        from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+        ctx.save_for_backward(x, dt, A, B_, C_)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd_scan(x, dt, A, B_, C_, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        pairs = [(i, g) for i, g in enumerate((gy, gstate)) if g is not None]
+        if not pairs:
+            return (None,) * (len(inputs) + 1)
+        with torch.enable_grad():
+            outs = ssd_chunked(*inputs, ctx.chunk)
+            grads = iter(torch.autograd.grad([outs[i] for i, _ in pairs], wanted,
+                                             [g for _, g in pairs], allow_unused=True))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
 
 
 def ssd_step(
@@ -182,15 +221,7 @@ def ssm_mixer(
         cc = silu(_causal_conv(cp, params["conv_c"]))
         xh = xc.reshape(B, S, nh, hd)
         if cfg.use_kernels == "cuda":
-            if records_grad(params, x):
-                raise NotImplementedError(
-                    "the SSD scan kernel is forward only: SSM training needs an SSD "
-                    "backward (ROADMAP A8, SSM training); use_kernels='off' trains "
-                    "through the plain path"
-                )
-            from repro_torch.kernels.ssd_scan.ops import ssd_scan
-
-            y, final_state = ssd_scan(xh, dt, A, bc, cc, chunk=cfg.ssm_chunk)
+            y, final_state = SSDScan.apply(xh, dt, A, bc, cc, cfg.ssm_chunk)
         elif cfg.use_kernels == "off":
             y, final_state = ssd_chunked(xh, dt, A, bc, cc, cfg.ssm_chunk)
         else:

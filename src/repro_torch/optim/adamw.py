@@ -6,7 +6,8 @@ the global norm, ``u = (m / bc1) / (sqrt(v / bc2) + eps)``, ``p -= lr * (u +
 wd * p)``, stored back in the parameter's dtype.  (``torch.optim.AdamW`` orders
 its operations otherwise.)  Moments are float32; ``keep_master=True`` adds a
 float32 master copy.  The update is functional: it returns new tensors and
-leaves its inputs as they were.
+leaves its inputs as they were; it runs over each leaf in slices, so that its
+float32 temporaries stay small beside the moments.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
+SLICE = 1 << 26  # elements of a leaf updated at once (float32 temporaries of 256 MB)
 
 
 @dataclass(frozen=True)
@@ -77,32 +79,41 @@ def adamw_update(
     bc1 = 1 - torch.pow(torch.tensor(opt.b1, device=t.device), t)
     bc2 = 1 - torch.pow(torch.tensor(opt.b2, device=t.device), t)
 
-    src = state.get("master", params)
+    def upd(src, p, g, m, v):
+        """One leaf, in slices of ``SLICE`` elements (each element's
+        operations are the same, so the result is the whole leaf's bit for
+        bit) written into new tensors: the float32 temporaries of a stacked
+        expert weight would otherwise be gigabytes each."""
+        new_p = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        new_m, new_v = torch.empty_like(m), torch.empty_like(v)
+        master = torch.empty_like(m) if opt.keep_master else None
+        ins = [t.reshape(-1) for t in (src, g, m, v)]
+        outs = [t.reshape(-1) for t in (new_p, new_m, new_v, master) if t is not None]
+        for i in range(0, p.numel(), SLICE):
+            ps, gs, ms, vs = (t[i:i + SLICE] for t in ins)
+            gs = gs.float() * scale
+            ms = opt.b1 * ms + (1 - opt.b1) * gs
+            vs = opt.b2 * vs + (1 - opt.b2) * torch.square(gs)
+            u = (ms / bc1) / (torch.sqrt(vs / bc2) + opt.eps)
+            pf = ps.float()
+            pf = pf - lr * (u + opt.weight_decay * pf)
+            for out, val in zip(outs, (pf, ms, vs, pf)):
+                out[i:i + SLICE].copy_(val)  # the parameter rounds to its dtype here
+        return new_p.requires_grad_(p.requires_grad), master, new_m, new_v
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m = opt.b1 * m + (1 - opt.b1) * g
-        v = opt.b2 * v + (1 - opt.b2) * torch.square(g)
-        u = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
-        pf = p.float()
-        pf = pf - lr * (u + opt.weight_decay * pf)
-        return pf, m, v
-
-    flat_p, treedef = tree_flatten(src)
+    flat_p, treedef = tree_flatten(params)
+    flat_src = tree_leaves(state.get("master", params))
     flat_g = tree_leaves(grads)
     flat_m = tree_leaves(state["m"])
     flat_v = tree_leaves(state["v"])
-    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
-    new_f32 = tree_unflatten(treedef, [o[0] for o in out])
+    out = [upd(*leaves) for leaves in zip(flat_src, flat_p, flat_g, flat_m, flat_v)]
+    new_params = tree_unflatten(treedef, [o[0] for o in out])
     new_state = {
-        "m": tree_unflatten(treedef, [o[1] for o in out]),
-        "v": tree_unflatten(treedef, [o[2] for o in out]),
+        "m": tree_unflatten(treedef, [o[2] for o in out]),
+        "v": tree_unflatten(treedef, [o[3] for o in out]),
         "step": step,
     }
     if opt.keep_master:
-        new_state["master"] = new_f32
-    new_params = tree_map(
-        lambda nf, p: nf.to(p.dtype).requires_grad_(p.requires_grad), new_f32, params
-    )
+        new_state["master"] = tree_unflatten(treedef, [o[1] for o in out])
     metrics = {"grad_norm": gn, "lr": lr}
     return new_params, new_state, metrics

@@ -198,21 +198,25 @@ def test_tree_helpers_release_their_leaves_without_the_collector():
 
 
 def test_unported_paths_raise():
+    """MoE and SSM training run through the kernel path (its plain versions
+    on the CPU; ``tests/test_torch_train_kernels.py`` holds them to the
+    reference); what stays unported raises: ``batch_chunks > 1`` (ROADMAP
+    A8b) and a remat policy the reference does not have."""
     _, tcfg = _cfgs()
     tparams = lm.init_model(tcfg, 0, device="cpu")
     tokens = torch.zeros(2, 64, dtype=torch.int32)
-    # the grouped-matmul kernel is forward only: MoE training through it raises
-    ecfg = get_config("deepseek-moe-16b").reduced()
-    eparams = lm.init_model(ecfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8, MoE training"):
-        lm.lm_loss(eparams, ecfg, {"tokens": tokens[:, :16], "labels": tokens[:, :16]})
+    for arch in ("deepseek-moe-16b", "mamba2-130m"):
+        cfg = get_config(arch).reduced()
+        assert cfg.use_kernels == "cuda"
+        params = lm.init_model(cfg, 0, device="cpu")
+        leaves = [v for _, v in tree_paths(params)]
+        loss, _ = lm.lm_loss(params, cfg, {"tokens": tokens[:, :16], "labels": tokens[:, :16]})
+        grads = torch.autograd.grad(loss, leaves)
+        assert torch.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads), arch
     with pytest.raises(NotImplementedError, match="batch_chunks"):
         lm.forward_hidden(tparams, dataclasses.replace(tcfg, batch_chunks=2), tokens)
-    # the SSD scan kernel is forward only: training through it raises
-    mcfg = get_config("mamba2-130m").reduced()
-    mparams = lm.init_model(mcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8, SSM training"):
-        lm.lm_loss(mparams, mcfg, {"tokens": tokens[:, :16], "labels": tokens[:, :16]})
+    with pytest.raises(NotImplementedError, match="remat policy 'offload'"):
+        lm.forward_hidden(tparams, dataclasses.replace(tcfg, remat="offload"), tokens)
     # without CUDA the helpers refuse the default device instead of the CPU
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -15,7 +15,8 @@ d 64, 2 shared experts), with weights carried across as numpy arrays:
   (the same additions in the same order);
 * the model: the ``forward_hidden`` aux and ``lm_loss`` (and its gradients)
   under ``use_kernels="off"`` against the JAX model in float32; under
-  ``"cuda"`` the kernel path refuses autograd.
+  ``"cuda"`` the FFN's gradients equal the ``"off"`` path's (the kernel
+  path against the reference is ``tests/test_torch_train_kernels.py``).
 
 Prefill and decode of the MoE configs against the JAX model and engine are in
 ``tests/test_torch_serving.py``.
@@ -231,13 +232,31 @@ def test_lm_loss_and_grads_match_reference_off():
 
 
 def test_kernel_path_refuses_autograd():
+    """The kernel path no longer refuses autograd: under ``"cuda"`` (the
+    grouped matmul's plain version on the CPU, its backward the
+    ``GroupedMatmul`` Function's) y, the aux and every gradient equal the
+    ``"off"`` path's within 1e-6, and no kernel launch is counted; without
+    autograd y keeps its shape."""
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+
     jcfg, tcfg = _cfgs(mode="cuda")
+    ocfg = dataclasses.replace(tcfg, use_kernels="off")
     _, tp = _ffn_params(jcfg, "float32")
-    for leaf in tree_flatten(tp)[0]:
+    leaves = tree_flatten(tp)[0]
+    for leaf in leaves:
         leaf.requires_grad_(True)
     _, tx = _x(1, 4, tcfg.d_model, "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8, MoE training"):
-        moe.moe_ffn(tp, tx, tcfg)
+    tx.requires_grad_(True)
+    before = (gmm_kernel.LAUNCHES, gmm_kernel.DX_LAUNCHES)
+    got = []
+    for cfg in (tcfg, ocfg):
+        y, aux = moe.moe_ffn(tp, tx, cfg)
+        loss = (y * y).sum() + aux["moe_balance"] + aux["moe_zloss"]
+        got.append((y.detach(), torch.autograd.grad(loss, [tx] + leaves)))
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.DX_LAUNCHES) == before
+    np.testing.assert_allclose(got[0][0].numpy(), got[1][0].numpy(), atol=1e-6, rtol=1e-6)
+    for g, o in zip(got[0][1], got[1][1]):
+        np.testing.assert_allclose(g.numpy(), o.numpy(), atol=1e-6, rtol=1e-6)
     with torch.no_grad():
         y, _ = moe.moe_ffn(tp, tx, tcfg)
     assert y.shape == tx.shape

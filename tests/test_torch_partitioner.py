@@ -269,6 +269,29 @@ def test_measure_device_link_needs_cuda():
         tprof.measure_device_link()
 
 
+def test_graphed_step_refuses_arguments_off_its_device(monkeypatch):
+    """``GraphedStep`` (the CUDA-graph replay ``profile_device`` times on the
+    card, ROADMAP C8) refuses arguments that lie elsewhere instead of
+    running them eagerly; on the CPU ``profile_device`` times the eager
+    step and builds no ``GraphedStep``."""
+    import torch
+
+    from repro_torch.runtime import device_runtime as dr
+
+    graphed = dr.GraphedStep(lambda state, ins: (state, ins, None), "cuda:0")
+    with pytest.raises(ValueError, match="must lie on cuda:0"):
+        graphed({}, {"a.x": (torch.zeros(4), torch.ones(4, dtype=torch.bool))})
+
+    def refuse(*a, **k):
+        raise AssertionError("a GraphedStep on the CPU")
+
+    monkeypatch.setattr(dr, "GraphedStep", refuse)
+    net, _ = TNETS["IDCT8"](64)
+    prog = repro_torch.compile(net, block=64, device="cpu")
+    prof = prog.profile(block=64, include_links=False)
+    assert prof.exec_hw and all(t > 0 for t in prof.exec_hw.values())
+
+
 # Bitonic8: ce0 feeds ce4 on the device and ce5 on the host, and both feed
 # ce8, so {ce0, ce4, ce8} is one connected part that a path through the host
 # leaves (ce0 -> ce5) and re-enters (ce5 -> ce8)

@@ -107,15 +107,17 @@ def test_mixed_placement_matches_host():
 
 
 def test_later_slices_raise_not_implemented():
-    """What stays unported names its ROADMAP item: MoE training through
-    the grouped-matmul kernel is A8."""
+    """What stays unported names its ROADMAP item: in-block batch chunking
+    belongs to sharding, A8b."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.model import lm
 
-    cfg = get_config("deepseek-moe-16b").reduced()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), batch_chunks=2)
     params = lm.init_model(cfg, 0, device="cpu")
     tokens = torch.zeros(2, 16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
         lm.lm_loss(params, cfg, {"tokens": tokens, "labels": tokens})
 
 

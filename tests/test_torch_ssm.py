@@ -128,14 +128,22 @@ def test_ssm_mixer_prefill_and_decode_match_reference(mode, tol):
 
 
 def test_kernel_path_refuses_autograd_and_never_falls_back():
+    """The kernel path trains (``SSDScan``: the scan's plain version on the
+    CPU, the vjp of ``ssd_chunked`` behind it): the mixer's output and its
+    gradients equal the plain path's within 1e-5; the kernel wrapper still
+    refuses CPU tensors and the plain version launches nothing."""
     _, tcfg, _, tp = _mixer_setup("cuda")
-    x = torch.zeros(1, 8, tcfg.d_model, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="SSM training"):
-        ssm_mixer(tp, x, tcfg)
-    # the plain path trains
     _, ocfg, _, _ = _mixer_setup("off")
-    y, _ = ssm_mixer(tp, x, ocfg)
-    assert y.requires_grad
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 16, tcfg.d_model))
+                         .astype(np.float32)).requires_grad_(True)
+    leaves = [x] + [v.requires_grad_(True) for v in tp.values()]
+    got = []
+    for cfg in (tcfg, ocfg):
+        y, _ = ssm_mixer(tp, x, cfg)
+        got.append((y.detach(), torch.autograd.grad((y * y).sum(), leaves)))
+    np.testing.assert_allclose(got[0][0].numpy(), got[1][0].numpy(), atol=1e-5, rtol=1e-5)
+    for g, o in zip(got[0][1], got[1][1]):
+        np.testing.assert_allclose(g.numpy(), o.numpy(), atol=1e-5, rtol=1e-5)
     # the kernel wrapper refuses CPU tensors, and the plain version launches nothing
     before = kernel.LAUNCHES
     x4, dt, A, B_, C_ = (torch.from_numpy(a) for a in _ssd_inputs(1, 32, 2, 16, 8))
