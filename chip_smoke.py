@@ -157,8 +157,8 @@ Phases, one line or more each:
 12. explore — first the unfused device step (ROADMAP C8): up to three
              single-actor partitions a network as ``profile_device`` builds
              them, each step's kernels, device µs and host µs a call eager
-             beside its CUDA-graph replay (``GraphedStep``, what
-             ``profile_device`` now times), the replay bitwise the eager step
+             beside its CUDA-graph replay (``core/profiler.py::capture_step``,
+             what ``profile_device`` now times), the replay bitwise the eager step
              (and the CPU's on the compare-only networks); then
              the profile-guided partitioner on the five Table-I networks at
              ``benchmarks/table2_dse.py``'s sizes (block 2048, links over 256,
@@ -2245,13 +2245,14 @@ def unfused_step(nets) -> dict:
     seeded inputs: the eager step's device kernels and device busy µs a call
     (the profiler's) and its host µs a call (``C8_REPS`` calls, then one
     synchronise), beside the same step as ``profile_device`` now runs it,
-    a ``runtime/device_runtime.py::GraphedStep`` (captured once after a
-    warm-up, then replayed), timed the same way.  The replay's outputs,
+    captured once after a warm-up by ``core/profiler.py::capture_step`` and
+    replayed, timed the same way.  The replay's outputs,
     idle flag and state equal the eager step's bitwise, and on the
     compare-only networks the CPU's eager step's too."""
     import repro_torch
     from repro_torch.core.graph import GraphError
-    from repro_torch.runtime.device_runtime import GraphedStep, compile_partition
+    from repro_torch.core.profiler import capture_step
+    from repro_torch.runtime.device_runtime import compile_partition
 
     dev = torch.device("cuda:0")
 
@@ -2287,7 +2288,6 @@ def unfused_step(nets) -> dict:
                                 torch.ones(DSE_BLOCK, dtype=torch.bool, device=dev))
                    for (a, p, _dt) in program.in_ports}
             state = program.init_state
-            graphed = GraphedStep(program.step, dev)
 
             def eager(program=program, state=state, ins=ins):
                 return program.step(state, ins)
@@ -2297,7 +2297,8 @@ def unfused_step(nets) -> dict:
                        kernels_per_call=prof["records"] / prof["calls"],
                        device_busy_us=prof["device_busy_ms_per_call"] * 1e3,
                        eager_host_us=host_us(eager))
-            replay = graphed(state, ins)
+            cuda_graph, replay = capture_step(program.step, state, ins, dev)
+            cuda_graph.replay()
             torch.cuda.synchronize()
             same = all(bits_equal(a, b) for a, b in zip(leaves(replay), leaves(eager())))
             if name in EXACT:
@@ -2306,13 +2307,11 @@ def unfused_step(nets) -> dict:
                                   {k: (v.cpu(), m.cpu()) for k, (v, m) in ins.items()})
                 same = same and all(bits_equal(a.cpu(), b)
                                     for a, b in zip(leaves(replay), leaves(on_cpu)))
-            row.update(graph_host_us=host_us(lambda g=graphed, s=state, i=ins: g(s, i)),
-                       graph_bitwise=same, graph_errors=graphed.errors)
+            row.update(graph_host_us=host_us(cuda_graph.replay), graph_bitwise=same)
             row["speedup"] = row["eager_host_us"] / row["graph_host_us"]
             rows.append(row)
             print("  C8 " + json.dumps(row), flush=True)
             check(same, f"C8 {name}.{actor}: the CUDA graph's step != the eager step")
-            check(not graphed.errors, f"C8 {name}.{actor}: capture failed {graphed.errors}")
     ratios = sorted(r["speedup"] for r in rows)
     check(bool(rows), "C8: no unfused step measured")
     summary = dict(partitions=len(rows), median_speedup=ratios[len(ratios) // 2],
@@ -2733,6 +2732,21 @@ TRAIN_KERNELS = {
                              remat="save_dispatch"),
 }
 TRAIN_OFF_TOL = 2e-2  # loss, and grad norm relative: one step against use_kernels="off"
+# the worst gradient leaf's relative norm gap against "off", each layer of a
+# stacked leaf on its own: sound runs read up to 0.14 (mamba2, a_log) and
+# 0.19 (deepseek, the last layer's router and experts, where bf16 routing
+# moves tokens between experts), and "off" in bf16 against "off" in float32
+# reads up to 0.15 and 0.19 on the same leaves; a leaf whose gradient is
+# wrong for a whole layer reads about 1
+LEAF_TOL = 0.3
+# the fault control: one layer's gradient of a leaf that the new backward
+# writes, zeroed, must read over LEAF_TOL
+LEAF_FAULT = {"mamba2-130m": ("layers/pos0/mixer/a_log", 0),
+              "deepseek-moe-16b": ("layers/pos0/ffn/w_down", 0)}
+# the CUDA-only branches of the training path at its shapes, against their
+# float32 products: a bf16 result rounded once from float32 (dW, dx) within
+# one bf16 ulp in norm, the head's float32 logits within float32 summation
+PIECE_TOL = {"bf16": 2.0 ** -8, "float32": 1e-5}
 GMM_FWD_SHAPES = (("gate_up", 1408), ("down", 2048))  # f of the forward product at d 2048/1408
 
 
@@ -2753,7 +2767,7 @@ def loss_and_grads(params, cfg, batch) -> dict:
     """One ``lm_loss`` forward and backward: the loss, the global gradient
     norm, the kernels launched in the forward and in the backward (the
     backward's include each block's recompute and, for ``moe_gmm``, dx),
-    and the peak device memory."""
+    the peak device memory and the gradients (``grads``, in leaf order)."""
     from repro_torch.model import lm
     from repro_torch.optim import global_norm
     from repro_torch.pytree import tree_leaves
@@ -2770,7 +2784,46 @@ def loss_and_grads(params, cfg, batch) -> dict:
     gn = float(global_norm(grads))
     bwd = {k: v - fwd[k] for k, v in train_counts().items()}
     return dict(loss=float(loss.detach()), grad_norm=gn, forward=fwd, backward=bwd,
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, grads=list(grads))
+
+
+def leaf_gaps(params, got, ref) -> dict:
+    """||got - ref|| / ||ref|| in float32 for every gradient leaf, in leaf
+    order of ``params``; a stacked layer leaf gives one gap a layer
+    (``path[i]``)."""
+    from repro_torch.pytree import tree_paths
+
+    out = {}
+    for (path, _), g, r in zip(tree_paths(params), got, ref):
+        parts = list(zip(g, r)) if path.startswith("layers/") else [(g, r)]
+        for i, (a, b) in enumerate(parts):
+            key = f"{path}[{i}]" if len(parts) > 1 or path.startswith("layers/") else path
+            ref_norm = torch.linalg.vector_norm(b.float())
+            out[key] = float(torch.linalg.vector_norm(a.float() - b.float())
+                             / ref_norm.clamp_min(1e-30))
+    return out
+
+
+def gap_summary(gaps: dict, ssm: bool) -> dict:
+    """The worst gap of each group of leaves (the routed experts' stacked
+    weights, the mixer's leaves: the SSD's or attention's, the head or tied
+    embedding, the rest) and the five worst leaves."""
+    def group(key):
+        if "/ffn/w_" in key:
+            return "experts"
+        if "/mixer/" in key:
+            return "ssd" if ssm else "attention"
+        if key.startswith(("head/", "embed/")):
+            return "head"
+        return "other"
+
+    worst = {}
+    for key, gap in gaps.items():
+        g = group(key)
+        if gap >= worst.get(g, ("", -1.0))[1]:
+            worst[g] = (key, gap)
+    top = sorted(gaps.items(), key=lambda kv: -kv[1])[:5]
+    return dict(max=max(gaps.values()), by_group=worst, top=top)
 
 
 def backward_pieces(arch: str, cfg, B: int, S: int) -> dict:
@@ -2781,13 +2834,28 @@ def backward_pieces(arch: str, cfg, B: int, S: int) -> dict:
     from CUDA events around a CUDA graph's replays; the SSD backward (the
     vjp of ``ssd_chunked``, recomputed: hundreds of plain kernels) on the
     device behind a spin kernel (``queued_ms``), and a call's wall time
-    back to back from Python."""
-    from repro_torch.kernels.moe_gmm.ops import _dw
+    back to back from Python.  Beside them, each branch that runs only on
+    the card, at these shapes, against its float32 product (``gaps``, the
+    relative norm gap, held to ``PIECE_TOL``): the LM head's forward
+    (``lm._HeadF32``) and, through ``GroupedMatmul``'s own backward, dx (the
+    kernel on the transposed weights) and dW (``_dw``)."""
+    from repro_torch.kernels.moe_gmm.ops import GroupedMatmul, _dw
+    from repro_torch.model import lm
     from repro_torch.model.ssm import SSDScan
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     bf = torch.bfloat16
-    rows = {}
+    rows, gaps = {}, {}
+
+    def gap(got, want):
+        return float(torch.linalg.vector_norm(got.float() - want.float())
+                     / torch.linalg.vector_norm(want.float()))
+
+    # the head over one 512-token CE chunk of every batch row
+    h = torch.randn(B * 512, cfg.d_model, generator=gen, device="cuda", dtype=bf)
+    w = torch.randn(cfg.d_model, cfg.vocab_size, generator=gen, device="cuda", dtype=bf) * 0.02
+    gaps["head_fwd"] = gap(lm._HeadF32.apply(h, w), torch.matmul(h.float(), w.float()))
+    del h, w
     if cfg.ssm_state:
         nh, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         x = torch.randn(B, S, nh, P, generator=gen, device="cuda", dtype=bf)
@@ -2817,6 +2885,12 @@ def backward_pieces(arch: str, cfg, B: int, S: int) -> dict:
             w = torch.randn(E, k, f, generator=gen, device="cuda", dtype=bf) * 0.02
             dy = torch.randn(E, C, f, generator=gen, device="cuda", dtype=bf)
             wt = w.transpose(1, 2).contiguous()
+            xg, wg = xb.clone().requires_grad_(), w.clone().requires_grad_()
+            dx, dw = torch.autograd.grad(GroupedMatmul.apply(xg, wg), (xg, wg), dy)
+            gaps[f"gmm_{tag}_dx"] = gap(dx, torch.bmm(dy.float(), wt.float()).to(bf))
+            gaps[f"gmm_{tag}_dw"] = gap(dw, torch.bmm(xb.float().transpose(1, 2),
+                                                      dy.float()).to(bf))
+            del xg, wg, dx, dw
             rows[f"gmm_{tag}"] = dict(
                 E=E, C=C, d=k, f=f,
                 fwd_ms=device_ms(lambda: grouped_matmul_cuda(xb, w), 5),
@@ -2824,7 +2898,12 @@ def backward_pieces(arch: str, cfg, B: int, S: int) -> dict:
                 dx_ms=device_ms(lambda: grouped_matmul_cuda(dy, wt, dx=True), 5),
                 dw_ms=device_ms(lambda: _dw(xb, dy, w.dtype), 5),
             )
+    rows["gaps"] = gaps
     print(f"  {arch} backward pieces a layer (ms): " + json.dumps(rows), flush=True)
+    check(gaps["head_fwd"] <= PIECE_TOL["float32"], f"{arch}: head forward gap {gaps}")
+    for key, value in gaps.items():
+        if key != "head_fwd":
+            check(value <= PIECE_TOL["bf16"], f"{arch}: {key} gap {value} over one bf16 ulp")
     return rows
 
 
@@ -2836,7 +2915,8 @@ def phase_train_kernels() -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.steps import make_train_step
     from repro_torch.model import lm
-    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.optim import OptConfig, global_norm, init_opt_state
+    from repro_torch.pytree import tree_map, tree_paths
 
     print("phase 14: SSM and MoE training through the kernels", flush=True)
     out = {}
@@ -2852,20 +2932,50 @@ def phase_train_kernels() -> dict:
         row = dict(arch=arch, layers=cfg.num_layers, published_layers=get_config(arch).num_layers,
                    global_batch=B, seq_len=S, remat=cfg.remat)
 
-        # one step's loss and grad norm on the same params and batch, against "off"
+        # one step's loss, grad norm and every gradient leaf on the same
+        # params and batch, against "off"; beside it "off" against "off" in
+        # float32 (the gaps bf16 rounding alone gives), and a fault control
         one = {"cuda": loss_and_grads(params, cfg, batches[0])}
         off = dataclasses.replace(cfg, use_kernels="off")
         one["off"] = loss_and_grads(params, off, batches[0])
+        got, ref = one["cuda"].pop("grads"), one["off"].pop("grads")
+        ssm = bool(cfg.ssm_state)
+        gaps = {"cuda_vs_off": gap_summary(leaf_gaps(params, got, ref), ssm)}
+        f32 = dataclasses.replace(off, dtype="float32", param_dtype="float32")
+        wide = tree_map(lambda t: t.detach().float().requires_grad_(), params)
+        exact = loss_and_grads(wide, f32, batches[0]).pop("grads")
+        del wide
+        gaps["bf16_off_vs_f32_off"] = gap_summary(leaf_gaps(params, ref, exact), ssm)
+        gaps["cuda_vs_f32_off"] = gap_summary(leaf_gaps(params, got, exact), ssm)
+        del exact
+        path, layer = LEAF_FAULT[arch]
+        paths = [p for p, _ in tree_paths(params)]
+        bad = got[paths.index(path)].clone()
+        bad[layer] = 0
+        faulted = [bad if p == path else g for p, g in zip(paths, got)]
+        gn_off = one["off"]["grad_norm"]
+        gaps["fault"] = dict(
+            leaf=f"{path}[{layer}]", zeroed=True,
+            grad_norm_gap=abs(float(global_norm(faulted)) - gn_off) / gn_off,
+            leaf_gap=leaf_gaps(params, faulted, ref)[f"{path}[{layer}]"])
+        del got, ref, bad, faulted
         if cfg.moe:
             one["block"] = loss_and_grads(params, dataclasses.replace(cfg, remat="block"),
                                           batches[0])
-        row["one_step"] = one
+            del one["block"]["grads"]
+        row["one_step"], row["leaf_gaps"] = one, gaps
         print(f"  {arch}: one step " + json.dumps(one), flush=True)
+        print(f"  {arch}: gradient leaves' relative gaps " + json.dumps(gaps), flush=True)
         k, o = one["cuda"], one["off"]
         check(abs(k["loss"] - o["loss"]) <= TRAIN_OFF_TOL,
               f"{arch} train: loss {k['loss']} vs off {o['loss']}")
         check(abs(k["grad_norm"] - o["grad_norm"]) <= TRAIN_OFF_TOL * abs(o["grad_norm"]),
               f"{arch} train: grad norm {k['grad_norm']} vs off {o['grad_norm']}")
+        check(gaps["cuda_vs_off"]["max"] <= LEAF_TOL,
+              f"{arch} train: a gradient leaf off \"off\"'s by "
+              f"{gaps['cuda_vs_off']['top'][0]}, over {LEAF_TOL}")
+        check(gaps["fault"]["leaf_gap"] > LEAF_TOL,
+              f"{arch} train: the leaf check misses a zeroed gradient ({gaps['fault']})")
         name = "moe_gmm" if cfg.moe else "ssd_scan"
         check(k["forward"][name] > 0 and k["backward"][name] > 0,
               f"{arch} train: {name} launches forward {k['forward'][name]} backward "

@@ -13,10 +13,11 @@ Port of ``repro/core/profiler.py``.  ``profile_device`` compiles each
 device-eligible actor as a single-actor partition on a torch device (default
 ``cuda:0``) and waits with ``torch.cuda.synchronize`` where the reference
 calls ``jax.block_until_ready`` (nothing to wait for on the CPU); on the
-card a stateless partition's step is timed as one CUDA-graph replay
-(``runtime/device_runtime.py::GraphedStep``), the counterpart of the
-reference's jitted dispatch, where eager per-op launches would price launch
-overhead (ROADMAP C8); ``measure_device_link`` times pinned host tensors copied to the card with
+card every partition's step is timed as one CUDA-graph replay
+(``capture_step``), the counterpart of the reference's jitted dispatch,
+where eager per-op launches would price launch overhead (ROADMAP C8).
+Only the profiler replays graphs: a run launches its partitions eagerly.
+``measure_device_link`` times pinned host tensors copied to the card with
 ``non_blocking=True`` and a synchronisation, as PLink stages, and raises
 without CUDA.  The other functions are copies.
 """
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.core.cost_model import LinkModel, NetworkProfile
 from repro_torch.core.graph import ActorGraph, GraphError
+from repro_torch.pytree import tree_leaves
 from repro_torch.runtime.scheduler import HostRuntime
 
 
@@ -104,6 +106,40 @@ def profile_host_fused(
     return prof
 
 
+CAPTURE_WARMUP = 3  # eager calls on a side stream before a capture
+
+
+def capture_step(step, state, inputs, device):
+    """``step(state, inputs)`` captured once as a CUDA graph on ``device``
+    after ``CAPTURE_WARMUP`` eager calls on a side stream: ``(graph, out)``.
+    ``graph.replay()`` reruns the step's kernels on the tensors it was
+    captured with, where they lie, and rewrites ``out`` in place, bit for
+    bit the eager step's.  The caller keeps ``state`` and ``inputs`` alive
+    while it replays.  A tensor off ``device`` is refused, and a step that
+    cannot be captured raises."""
+    device = torch.device(device)
+    off = {
+        t.device for t in tree_leaves((state, inputs))
+        if isinstance(t, torch.Tensor) and t.device != device
+    }
+    if device.type != "cuda" or off:
+        raise ValueError(
+            f"capture_step: the arguments must lie on one CUDA device "
+            f"({device}; found {sorted(map(str, off))})"
+        )
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                step(state, inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(state, inputs)
+    return graph, out
+
+
 def profile_device(
     graph: ActorGraph,
     prof: NetworkProfile,
@@ -120,8 +156,10 @@ def profile_device(
     budget expires simply keep no ``exec_hw`` entry (the MILP then treats
     them as host-only), which beats hanging a live server's repartition
     loop on a slow compile.  ``device`` is the torch device the partitions
-    run on (default ``cuda:0``)."""
-    from repro_torch.runtime.device_runtime import GraphedStep, compile_partition
+    run on (default ``cuda:0``); on the card each step is timed as one
+    CUDA-graph replay (``capture_step``), and a step that cannot be
+    captured raises."""
+    from repro_torch.runtime.device_runtime import compile_partition
 
     device = torch.device("cuda:0" if device is None else device)
 
@@ -153,12 +191,6 @@ def profile_device(
                 torch.cuda.synchronize(_dev)
 
         state = program.init_state
-        step = program.step
-        if dev.type == "cuda" and not any(state.values()):
-            # one replay of the step's kernels, the counterpart of the
-            # reference's jitted dispatch (ROADMAP C8); stateful steps
-            # stay eager
-            step = GraphedStep(program.step, dev)
         # total tokens this actor processes over the workload
         in_keys = [
             k for k in prof.tokens
@@ -174,19 +206,27 @@ def profile_device(
         half = {
             k: (v[0][: block // 2], v[1][: block // 2]) for k, v in ins.items()
         }
-        for payload in (ins, half):
-            step(state, payload)
+        if dev.type == "cuda":
+            # one replay of the step's kernels, the counterpart of the
+            # reference's jitted dispatch (ROADMAP C8)
+            calls = [
+                capture_step(program.step, state, p, dev)[0].replay
+                for p in (ins, half)
+            ]
+        else:
+            calls = [lambda p=p: program.step(state, p) for p in (ins, half)]
+        for call in calls:
+            call()
             wait()
 
-        def timed(payload):
+        def timed(call):
             t0 = time.perf_counter_ns()
             for _ in range(repeats):
-                step(state, payload)
+                call()
             wait()
             return (time.perf_counter_ns() - t0) / repeats / 1e9
 
-        t_full = timed(ins)
-        t_half = timed(half)
+        t_full, t_half = (timed(call) for call in calls)
         rate = max((t_full - t_half) / (block - block // 2), 0.0)
         overhead = max(t_full - rate * block, 0.0)
         n_launch = max(1, -(-total // block))

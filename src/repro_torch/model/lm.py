@@ -8,11 +8,15 @@ Python loop (the reference's ``lax.scan``); with ``remat="block"`` each block
 runs under ``torch.utils.checkpoint`` and is recomputed in the backward pass,
 as under ``jax.checkpoint`` — the kernels' forwards run again there.  With
 ``remat="save_dispatch"`` an MoE block runs as two checkpoints, up to the
-expert buffer and from it, so that the buffer is saved and everything else
-recomputed: the reference's ``save_only_these_names("moe_dispatch")``.  The
-checkpoints are non-reentrant, so the autograd graph is the same under both
-policies and so are the gradients, bit for bit; other blocks take
-``"block"``.
+expert buffer and from it, so that the buffer is saved and the mixer, the
+experts and the combine are recomputed, as under the reference's
+``save_only_these_names("moe_dispatch")``.  Every output of the first
+checkpoint is an input of the second and is saved as well: beside the
+buffer, the post-mixer residual, the normed activations and the route
+(two (tokens, d) tensors and the route's small ones a layer, where the
+reference saves the buffer alone).  The checkpoints are non-reentrant, so
+the autograd graph is the same under both policies and so are the
+gradients, bit for bit; other blocks take ``"block"``.
 
 The CE loss is computed in 512-token sequence chunks, each recomputed in the
 backward pass, with the head matmul inside, so the (tokens x vocab) float32
@@ -194,7 +198,8 @@ def forward_hidden(
             elif cfg.remat == "none" or not torch.is_grad_enabled():
                 x, aux = block(kind)(p, x)
             elif cfg.remat == "save_dispatch" and kind.ffn == FFN_MOE:
-                # two checkpoints: the buffer between them is saved
+                # two checkpoints: the buffer between them is saved, and
+                # with it the residual, the normed h and the route
                 x, h, buf, route, aux = checkpoint(dispatch(kind), p, x, **remat)
                 x = checkpoint(combine, p, x, h, buf, route, **remat)
             else:

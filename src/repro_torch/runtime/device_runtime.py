@@ -332,70 +332,6 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _tree_leaves(tree) -> List[Any]:
-    out: List[Any] = []
-    _tree_map(out.append, tree)
-    return out
-
-
-class GraphedStep:
-    """A partition step replayed from a CUDA graph (ROADMAP C8).
-
-    The reference jits every partition step into one dispatch; eagerly, a
-    step of the legacy unfused lowering is one launch per torch op (4-18
-    for a Table-I actor), and its host time is launch overhead.  A
-    ``GraphedStep`` captures ``eager`` once per set of arguments (the
-    address, shape, stride and type of every tensor in the state and the
-    inputs) after a warm-up on a side stream, and replays it: the replay
-    reads the arguments where they lie, with no copy, so it suits a caller
-    that passes the same tensors every call, as ``core/profiler.py::
-    profile_device`` does (it keeps each set's tensors alive, so their
-    addresses stay theirs).  The kernels are the eager step's, so the
-    outputs are its bit for bit; the returned tensors are the graph's own
-    and the next replay overwrites them.  A step that cannot be captured
-    runs eagerly for those arguments; ``errors`` records why."""
-
-    WARMUP = 3
-
-    def __init__(self, eager: Callable, device: torch.device):
-        self.eager = eager
-        self.device = torch.device(device)
-        self._graphs: Dict[Tuple, Tuple] = {}
-        self.errors: List[str] = []
-
-    def __call__(self, state, inputs):
-        leaves = [t for t in _tree_leaves((state, inputs)) if isinstance(t, torch.Tensor)]
-        if any(t.device != self.device for t in leaves):
-            raise ValueError(f"GraphedStep: the arguments must lie on {self.device}")
-        key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in leaves)
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = self._capture(state, inputs) + (leaves,)
-        graph, out, _held = entry
-        if graph is None:
-            return self.eager(state, inputs)
-        graph.replay()
-        return out
-
-    def _capture(self, state, inputs):
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(self.WARMUP):
-                    self.eager(state, inputs)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph):
-                    out = self.eager(state, inputs)
-            except RuntimeError as e:
-                torch.cuda.synchronize()
-                self.errors.append(f"{type(e).__name__}: {e}")
-                return None, None
-        return graph, out
-
-
 def _tree_stack(trees: Sequence, device: torch.device):
     """Stack matching leaves of ``trees`` along a new leading axis."""
     first = trees[0]

@@ -270,22 +270,22 @@ def test_measure_device_link_needs_cuda():
 
 
 def test_graphed_step_refuses_arguments_off_its_device(monkeypatch):
-    """``GraphedStep`` (the CUDA-graph replay ``profile_device`` times on the
-    card, ROADMAP C8) refuses arguments that lie elsewhere instead of
+    """``capture_step`` (the CUDA-graph capture ``profile_device`` times on
+    the card, ROADMAP C8) refuses arguments that lie elsewhere instead of
     running them eagerly; on the CPU ``profile_device`` times the eager
-    step and builds no ``GraphedStep``."""
+    step and captures no graph."""
     import torch
 
-    from repro_torch.runtime import device_runtime as dr
-
-    graphed = dr.GraphedStep(lambda state, ins: (state, ins, None), "cuda:0")
-    with pytest.raises(ValueError, match="must lie on cuda:0"):
-        graphed({}, {"a.x": (torch.zeros(4), torch.ones(4, dtype=torch.bool))})
+    step = lambda state, ins: (state, ins, None)  # noqa: E731
+    cpu_ins = {"a.x": (torch.zeros(4), torch.ones(4, dtype=torch.bool))}
+    for device in ("cuda:0", "cpu"):
+        with pytest.raises(ValueError, match="must lie on one CUDA device"):
+            tprof.capture_step(step, {}, cpu_ins, device)
 
     def refuse(*a, **k):
-        raise AssertionError("a GraphedStep on the CPU")
+        raise AssertionError("a CUDA graph on the CPU")
 
-    monkeypatch.setattr(dr, "GraphedStep", refuse)
+    monkeypatch.setattr(tprof, "capture_step", refuse)
     net, _ = TNETS["IDCT8"](64)
     prog = repro_torch.compile(net, block=64, device="cpu")
     prof = prog.profile(block=64, include_links=False)

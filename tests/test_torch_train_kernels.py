@@ -208,9 +208,10 @@ def test_bf16_dots_dense_matches_reference(monkeypatch, wdtype):
 
 
 def test_bf16_dots_decode_scores_match_reference(monkeypatch):
-    """One bf16 decode step of attention with the switch set: the QK scores
-    are rounded to bf16 in both packages.  Without the switch the two
-    settings differ here, so the check sees the rounding."""
+    """One bf16 decode step of attention: under either setting of the
+    switch the port equals the reference bit for bit, and the port without
+    the switch differs from the reference with it, so the comparison tells
+    the QK scores' bf16 rounding apart."""
     jcfg = dataclasses.replace(jget_config("smollm-135m").reduced(), dtype="bfloat16",
                                param_dtype="bfloat16", use_pallas="off")
     tcfg = dataclasses.replace(get_config("smollm-135m").reduced(), dtype="bfloat16",
@@ -239,8 +240,9 @@ def test_bf16_dots_decode_scores_match_reference(monkeypatch):
     got0, want0 = run()
     monkeypatch.setenv("REPRO_BF16_DOTS", "1")
     got1, want1 = run()
-    np.testing.assert_allclose(got1, want1, atol=1e-2, rtol=1e-2)
-    assert not np.array_equal(got0, got1) and not np.array_equal(want0, want1)
+    np.testing.assert_array_equal(got0, want0)
+    np.testing.assert_array_equal(got1, want1)
+    assert not np.array_equal(got0, want1)
 
 
 def test_adamw_slices_equal_the_whole_leaf(monkeypatch):
