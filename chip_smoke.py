@@ -224,6 +224,7 @@ missing.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -3034,6 +3035,273 @@ def phase_train_kernels() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded path on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+SHARDED = dict(arch="smollm-135m", steps=3, global_batch=8, seq_len=2048)
+# a smollm-135m training step's launches, as phase 5 counts them
+SHARDED_STEP_LAUNCHES = {"flash_fwd": 60, "flash_bwd_dq": 30, "flash_bwd_dkv": 30,
+                         "rmsnorm": 121}
+SHARDED_PREFILL = dict(arch="mamba2-130m", batch=8, seq_len=2048, ssd_calls=24)
+SHARDED_MOE = dict(arch="deepseek-moe-16b", layers=2, batch=4, seq_len=2048)
+
+
+def grads_of(params, cfg, batch, mesh=None, rules=None) -> dict:
+    """One ``lm_loss`` forward and backward, under ``shard_ctx(mesh, rules)``
+    with the batch placed by its logical axes when a mesh is given: the loss,
+    the gradients (as given, and gathered in leaf order), the launches of
+    the forward and of the backward, and the peak device memory with the
+    memory allocated when the forward starts (``start_gb``)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.model import lm
+    from repro_torch.pytree import tree_leaves
+
+    leaves = tree_leaves(params)
+    with sh.shard_ctx(mesh, rules) if mesh is not None else contextlib.nullcontext():
+        b = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+        if mesh is not None:
+            b = {k: sh.distribute_tensor(t, mesh, sh.ctx_placements(("batch", "seq"), t.shape))
+                 for k, t in b.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_gb = torch.cuda.memory_allocated() / 1e9
+        zero_train_counts()
+        loss, _ = lm.lm_loss(params, cfg, b)
+        torch.cuda.synchronize()
+        fwd = train_counts()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    bwd = {k: v - fwd[k] for k, v in train_counts().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # before the gathered copies below
+    full = lambda t: t.full_tensor() if isinstance(t, sh.DTensor) else t  # noqa: E731
+    return dict(loss=full(loss.detach()), grads=list(grads), plain=[full(g) for g in grads],
+                forward=fwd, backward=bwd, peak_gb=peak_gb, start_gb=start_gb)
+
+
+def same_bits(got: list, ref: list) -> list:
+    """Leaf indices whose bits differ."""
+    return [i for i, (a, b) in enumerate(zip(got, ref)) if not bits_equal(a, b)]
+
+
+def phase_sharded() -> dict:
+    """The slice's sharded path on a (1, 1) mesh over a one-rank NCCL group:
+    DTensor parameters, moments and batches under ``shard_ctx``, every
+    kernel behind its ``local_map`` boundary, held bitwise to the same runs
+    without a context (one rank: nothing is partial, nothing moves)."""
+    import dataclasses
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.compression import all_reduce_int8
+    from repro_torch.kernels.quant import kernel as quant
+    from repro_torch.kernels.quant.ops import dequantize_int8, quantize_int8
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.model import lm
+    from repro_torch.optim import OptConfig, global_norm, init_opt_state
+    from repro_torch.pytree import tree_leaves
+
+    print("phase 15: sharded (DTensor) steps on a one-rank mesh", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh()
+            check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+                  and tuple(mesh.mesh_dim_names) == ("data", "model"),
+                  f"sharded: make_test_mesh gave {mesh}")
+
+            # smollm-135m training, 3 AdamW steps with and without the context
+            cfg = get_config(SHARDED["arch"])
+            B, S, n = SHARDED["global_batch"], SHARDED["seq_len"], SHARDED["steps"]
+            opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=n)
+            data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                          seed=0))
+            batches = [data.next_batch() for _ in range(n)]
+            params = lm.init_model(cfg, 0, device="cuda")
+            rules = sh.make_rules(cfg, mesh)
+            placed = sh.place(params, sh.defs_shardings(lm.model_defs(cfg), mesh, rules))
+            step_fn = make_train_step(cfg, opt)
+            full = lambda t: t.full_tensor() if isinstance(t, sh.DTensor) else t  # noqa: E731
+            runs = {}
+            for name, p0, m in (("plain", params, None), ("sharded", placed, mesh)):
+                p, st = p0, init_opt_state(p0, opt)
+                steps, launches = [], dict.fromkeys(SHARDED_STEP_LAUNCHES, 0)
+                for i in range(n):
+                    # the gradients, leaf by leaf, of one lm_loss backward at the
+                    # step's parameters; then the step itself, the one profiled below
+                    g = grads_of(p, cfg, batches[i], m, rules)
+                    zero_train_counts()
+                    with sh.shard_ctx(m, rules) if m is not None else contextlib.nullcontext():
+                        p, st, met = step_fn(p, st, batches[i])
+                    torch.cuda.synchronize()
+                    launches = {k: v + train_counts()[k] for k, v in launches.items()}
+                    steps.append(dict(loss=g["loss"], step_loss=full(met["loss"]),
+                                      grads=g["plain"], peak_gb=g["peak_gb"],
+                                      start_gb=g["start_gb"],
+                                      grad_norm=float(full(met["grad_norm"]))))
+                    del g
+                runs[name] = dict(steps=steps, launches=launches,
+                                  final=[full(t) for t in tree_leaves((p, st))])
+            plain, shard = runs["plain"], runs["sharded"]
+            for i, (a, b) in enumerate(zip(plain["steps"], shard["steps"])):
+                for r in (a, b):
+                    check(bits_equal(r["step_loss"], r["loss"]),
+                          f"sharded: smollm step {i}: make_train_step's loss "
+                          f"{float(r['step_loss'])} != lm_loss's {float(r['loss'])}")
+                check(bits_equal(a["step_loss"], b["step_loss"]),
+                      f"sharded: smollm step {i} loss {float(b['step_loss'])} != "
+                      f"{float(a['step_loss'])}")
+                bad = same_bits(b["grads"], a["grads"])
+                check(not bad, f"sharded: smollm step {i}: {len(bad)} gradient leaves differ")
+            bad = same_bits(shard["final"], plain["final"])
+            check(not bad, f"sharded: smollm parameters and optimizer state after {n} steps: "
+                  f"{len(bad)} leaves differ from the unsharded run's")
+            per_step = {k: v / n for k, v in shard["launches"].items()}
+            check(per_step == SHARDED_STEP_LAUNCHES,
+                  f"sharded: launches a step {per_step}, expected {SHARDED_STEP_LAUNCHES}")
+            check(shard["launches"] == plain["launches"],
+                  f"sharded: launches {shard['launches']} != unsharded {plain['launches']}")
+            st0 = init_opt_state(params, opt)
+            prof_plain = profile_window(lambda: step_fn(params, st0, batches[0]), 3)
+            check_window(prof_plain, "sharded: unsharded step window")
+            sst0 = init_opt_state(placed, opt)
+
+            def sharded_step():
+                with sh.shard_ctx(mesh, rules):
+                    return step_fn(placed, sst0, batches[0])
+
+            prof_shard = profile_window(sharded_step, 3)
+            check_window(prof_shard, "sharded: sharded step window")
+            del st0, sst0
+            train = dict(
+                arch=cfg.name, global_batch=B, seq_len=S, steps=n,
+                losses={k: [float(s["step_loss"]) for s in r["steps"]] for k, r in runs.items()},
+                grad_norms={k: [s["grad_norm"] for s in r["steps"]] for k, r in runs.items()},
+                launches=shard["launches"], launches_per_step=per_step,
+                host_ms_per_step={"plain": prof_plain["ms_per_call"],
+                                  "sharded": prof_shard["ms_per_call"]},
+                device_busy_ms_per_step={"plain": prof_plain["device_busy_ms_per_call"],
+                                         "sharded": prof_shard["device_busy_ms_per_call"]},
+                idle_share={"plain": prof_plain["idle_share"],
+                            "sharded": prof_shard["idle_share"]},
+            )
+            print("  smollm: " + json.dumps(train), flush=True)
+
+            # batch_chunks=2 against batch_chunks=1, both under the context
+            one = shard["steps"][0]
+            two = grads_of(placed, dataclasses.replace(cfg, batch_chunks=2), batches[0], mesh,
+                           rules)
+            gn1, gn2 = float(global_norm(one["grads"])), float(global_norm(two["plain"]))
+            gaps = leaf_gaps(params, two["plain"], one["grads"])
+            worst = max(gaps.items(), key=lambda kv: kv[1])
+            chunks = dict(loss={"1": float(one["loss"]), "2": float(two["loss"])},
+                          grad_norm={"1": gn1, "2": gn2}, worst_leaf=worst,
+                          peak_gb={"1": one["peak_gb"], "2": two["peak_gb"]},
+                          start_gb={"1": one["start_gb"], "2": two["start_gb"]})
+            print("  batch_chunks: " + json.dumps(chunks), flush=True)
+            check(abs(float(two["loss"]) - float(one["loss"])) <= TRAIN_OFF_TOL,
+                  f"sharded: batch_chunks=2 loss {chunks['loss']}")
+            check(abs(gn2 - gn1) <= TRAIN_OFF_TOL * abs(gn1),
+                  f"sharded: batch_chunks=2 grad norm {chunks['grad_norm']}")
+            check(worst[1] <= LEAF_TOL, f"sharded: batch_chunks=2 leaf {worst} over {LEAF_TOL}")
+            train["batch_chunks"] = chunks
+            out["train"] = train
+            del runs, plain, shard, one, two, params, placed
+            torch.cuda.empty_cache()
+
+            # mamba2-130m prefill through the SSD scan kernel
+            cfg = get_config(SHARDED_PREFILL["arch"])
+            params = lm.init_model(cfg, 0, device="cuda")
+            rules = sh.make_rules(cfg, mesh)
+            placed = sh.place(params, sh.defs_shardings(lm.model_defs(cfg), mesh, rules))
+            toks = torch.from_numpy(np.random.default_rng(2).integers(
+                3, cfg.vocab_size, (SHARDED_PREFILL["batch"], SHARDED_PREFILL["seq_len"]))
+            ).to("cuda")
+            prefill = make_prefill_step(cfg)
+            logits, cache = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            zero_lm_counts()
+            with sh.shard_ctx(mesh, rules):
+                stoks = sh.distribute_tensor(toks, mesh, sh.ctx_placements(("batch", "seq"),
+                                                                           toks.shape))
+                slogits, scache = prefill(placed, {"tokens": stoks})
+                torch.cuda.synchronize()
+            ssd_calls = lm_counts()["ssd_scan"]
+            same = bits_equal(slogits.full_tensor(), logits) and not same_bits(
+                [t.full_tensor() for t in tree_leaves(scache)], tree_leaves(cache))
+            out["prefill"] = dict(arch=cfg.name, batch=SHARDED_PREFILL["batch"],
+                                  seq_len=SHARDED_PREFILL["seq_len"], ssd_scan=ssd_calls,
+                                  bitwise=same)
+            print("  mamba2 prefill: " + json.dumps(out["prefill"]), flush=True)
+            check(ssd_calls == SHARDED_PREFILL["ssd_calls"],
+                  f"sharded: {ssd_calls} SSD-scan calls, expected {SHARDED_PREFILL['ssd_calls']}")
+            check(same, "sharded: mamba2 prefill logits or final states differ from unsharded")
+            del params, placed, logits, cache, slogits, scache
+            torch.cuda.empty_cache()
+
+            # deepseek-moe-16b, one loss and backward through moe_gmm
+            cfg = dataclasses.replace(get_config(SHARDED_MOE["arch"]),
+                                      num_layers=SHARDED_MOE["layers"])
+            params = lm.init_model(cfg, 0, device="cuda")
+            rules = sh.make_rules(cfg, mesh)
+            placed = sh.place(params, sh.defs_shardings(lm.model_defs(cfg), mesh, rules))
+            batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=SHARDED_MOE["seq_len"],
+                                           global_batch=SHARDED_MOE["batch"], seed=0)).next_batch()
+            ref = grads_of(params, cfg, batch)
+            # the unsharded gradients (3.19 GB) leave the card, so that both
+            # runs start from the same resident memory
+            ref["plain"] = [g.cpu() for g in ref["plain"]]
+            ref["grads"] = None
+            got = grads_of(placed, cfg, batch, mesh, rules)
+            got["plain"] = [g.cpu() for g in got["plain"]]
+            moe = dict(arch=cfg.name, layers=cfg.num_layers, batch=SHARDED_MOE["batch"],
+                       seq_len=SHARDED_MOE["seq_len"], loss=float(got["loss"]),
+                       forward=got["forward"], backward=got["backward"],
+                       peak_gb={"plain": ref["peak_gb"], "sharded": got["peak_gb"]},
+                       start_gb={"plain": ref["start_gb"], "sharded": got["start_gb"]})
+            bad = same_bits(got["plain"], ref["plain"])
+            moe["bitwise"] = bits_equal(got["loss"], ref["loss"]) and not bad
+            print("  deepseek: " + json.dumps(moe), flush=True)
+            check(moe["bitwise"], f"sharded: deepseek loss or {len(bad)} gradient leaves differ")
+            check(got["forward"]["moe_gmm"] > 0 and got["backward"]["moe_gmm_dx"] > 0
+                  and got["forward"] == ref["forward"] and got["backward"] == ref["backward"],
+                  f"sharded: deepseek launches {got['forward']} / {got['backward']} against "
+                  f"{ref['forward']} / {ref['backward']}")
+            out["moe"] = moe
+            del params, placed, ref, got
+            torch.cuda.empty_cache()
+
+            # all_reduce_int8 over the mesh's data axis: the round trip
+            x = torch.randn(576, 4096, device="cuda", dtype=torch.bfloat16,
+                            generator=torch.Generator(device="cuda").manual_seed(3))
+            quant.LAUNCHES = 0
+            with sh.shard_ctx(mesh, sh.make_rules(get_config(SHARDED["arch"]), mesh)):
+                red = all_reduce_int8(x, "data")
+            torch.cuda.synchronize()
+            q_launches = quant.LAUNCHES
+            want = dequantize_int8(*quantize_int8(x)).to(x.dtype)
+            out["int8"] = dict(launches=q_launches, bitwise=bits_equal(red, want))
+            print("  all_reduce_int8(x, 'data'): " + json.dumps(out["int8"]), flush=True)
+            check(out["int8"]["bitwise"] and q_launches == 1,
+                  f"sharded: all_reduce_int8 over the data axis {out['int8']}")
+        finally:
+            dist.destroy_process_group()
+    out["launches"] = dict(
+        **train["launches"], ssd_scan=out["prefill"]["ssd_scan"],
+        moe_gmm=out["moe"]["forward"]["moe_gmm"] + out["moe"]["backward"]["moe_gmm"],
+        moe_gmm_dx=out["moe"]["backward"]["moe_gmm_dx"], quantize_int8=q_launches)
+    return out
+
+
 def build_all(programs) -> None:
     """Build every kernel library at once, one nvcc per source in parallel:
     the five sources of ``csrc/`` and the stream kernel generated for each of
@@ -3123,6 +3391,8 @@ def main() -> int:
     explore = timed(phase_explore, NETWORKS, card)
     stream_serve = timed(phase_stream_serve, NETWORKS)
     train_kernels = timed(phase_train_kernels)
+    torch.cuda.empty_cache()
+    sharded = timed(phase_sharded)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
@@ -3185,6 +3455,8 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], library=row["library"],
             design=designs[name],
+            launches_by_path=dict(train=train["launches"][name],
+                                  sharded=sharded["launches"][name]),
         ))
     def train_path(arch, name, dx=False):
         run = train_kernels[arch]
@@ -3200,9 +3472,10 @@ def main() -> int:
     ):
         row = rows_[main_shape]
         extra = dict(kernels_per_call=row["kernels_per_call"]) if name == "ssd_scan" else {}
+        extra["launches_by_path"] = dict(serve=serve["launches"][name],
+                                         sharded=sharded["launches"][name])
         if name == "ssd_scan":
-            extra["launches_by_path"] = dict(serve=serve["launches"][name],
-                                             train=train_path("mamba2-130m", name))
+            extra["launches_by_path"]["train"] = train_path("mamba2-130m", name)
         record["kernels"].append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
             replaces=path, launches=serve["launches"][name],
@@ -3219,7 +3492,9 @@ def main() -> int:
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs["moe_gmm"],
         launches_by_path=dict(serve=moe["launches"]["moe_gmm"],
-                              train=train_path("deepseek-moe-16b", "moe_gmm", dx=True)),
+                              train=train_path("deepseek-moe-16b", "moe_gmm", dx=True),
+                              sharded=dict(forward_backward=sharded["launches"]["moe_gmm"],
+                                           dx=sharded["launches"]["moe_gmm_dx"])),
     ))
     row = quant_rows["embed"]
     record["kernels"].append(dict(
@@ -3228,6 +3503,8 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in quant_rows.values()),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs["quantize_int8"],
+        launches_by_path=dict(compress=compress["launches"],
+                              sharded=sharded["launches"]["quantize_int8"]),
     ))
     print(json.dumps(record))
     print(card)

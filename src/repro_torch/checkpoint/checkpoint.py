@@ -19,6 +19,15 @@ and ``load_flat`` returns every leaf as stored.
 Arrays are saved from host copies; ``restore`` places each leaf on the device
 and in the dtype of the matching leaf of ``like``, and keeps its
 ``requires_grad``.  ``AsyncCheckpointer`` runs saves on a background thread.
+
+Checkpoints are mesh-agnostic, as the reference's: a DTensor leaf is saved
+gathered (every rank calls ``save``, which gathers; the rank 0 of the
+default group writes, and the ranks meet at a barrier after it), and
+``restore(..., shardings=)`` distributes each gathered leaf onto its ``(mesh,
+placements)`` (``distributed/sharding.py::NamedSharding``), so a restart may
+restore onto another mesh shape (the reference's ``remesh_restore``, run by
+``distributed/fault.py::TrainSupervisor(shardings=)``).  Without
+``shardings`` a DTensor leaf of ``like`` takes its own mesh and placements.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.pytree import tree_flatten, tree_map, tree_paths, tree_unflatten
 from repro_torch.runtime import chaos as chaos_mod
@@ -58,7 +69,31 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _gathered(tree: PyTree) -> Tuple[PyTree, bool]:
+    """(tree with every DTensor leaf gathered, whether it had one)."""
+    sharded = any(isinstance(t, DTensor) for _, t in tree_paths(tree))
+    if not sharded:
+        return tree, False
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree), True
+
+
+def _writes() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def save(
+    ckpt_dir, step: int, tree: PyTree, *, extra: Optional[Dict] = None,
+    keep: int = 3,
+) -> Path:
+    tree, sharded = _gathered(tree)
+    if not sharded:
+        return _save(ckpt_dir, step, tree, extra=extra, keep=keep)
+    final = _save(ckpt_dir, step, tree, extra=extra, keep=keep) if _writes() else None
+    dist.barrier()
+    return final or Path(ckpt_dir) / f"step_{step}"
+
+
+def _save(
     ckpt_dir, step: int, tree: PyTree, *, extra: Optional[Dict] = None,
     keep: int = 3,
 ) -> Path:
@@ -136,19 +171,31 @@ def load_flat(ckpt_dir, step: int) -> Tuple[Dict[str, np.ndarray], Dict]:
 def restore(
     ckpt_dir, step: int, like: PyTree, *, shardings: Optional[PyTree] = None,
 ) -> Tuple[PyTree, Dict]:
-    """Restore into the structure of ``like``: each leaf on the device and in
-    the dtype of ``like``'s leaf.  One card: ``shardings`` must be None."""
-    if shardings is not None:
-        raise NotImplementedError("sharded restore is not ported (ROADMAP A8b, sharding)")
+    """Restore into the structure of ``like``: each leaf in the dtype of
+    ``like``'s leaf, distributed onto its ``shardings`` entry when given (a
+    tree of ``(mesh, placements)`` pairs), else onto a DTensor leaf's own
+    mesh and placements, else on the device of ``like``'s leaf."""
+    from repro_torch.distributed.sharding import is_sharding
+
+    flat_sh = (tree_flatten(shardings, is_leaf=is_sharding)[0] if shardings is not None
+               else [None] * len(tree_paths(like)))
     d = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
     out = []
-    for key, want in tree_paths(like):
+    for (key, want), sh in zip(tree_paths(like), flat_sh):
         info = manifest["leaves"].get(key)
         assert info is not None, f"checkpoint missing leaf {key}"
         got = _from_numpy(np.load(d / info["file"]), info["dtype"])
         assert tuple(got.shape) == tuple(want.shape), (key, got.shape, want.shape)
-        got = got.to(device=want.device, dtype=want.dtype)
+        if sh is None and isinstance(want, DTensor):
+            sh = (want.device_mesh, want.placements)
+        if sh is not None:
+            mesh, placements = sh
+            dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+                if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+            got = distribute_tensor(got.to(device=dev, dtype=want.dtype), mesh, placements)
+        else:
+            got = got.to(device=want.device, dtype=want.dtype)
         out.append(got.requires_grad_(want.requires_grad))
     return tree_unflatten(tree_flatten(like)[1], out), manifest["extra"]
 
@@ -163,6 +210,7 @@ class AsyncCheckpointer:
         self.keep = keep
         self._q: "queue.Queue" = queue.Queue()
         self._err: Optional[BaseException] = None
+        self._sharded = False
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -173,7 +221,7 @@ class AsyncCheckpointer:
                 return
             step, tree, extra = item
             try:
-                save(self.ckpt_dir, step, tree, extra=extra, keep=self.keep)
+                _save(self.ckpt_dir, step, tree, extra=extra, keep=self.keep)
             except BaseException as e:  # noqa: BLE001 — re-raised on save/wait
                 self._err = e
             finally:
@@ -185,13 +233,23 @@ class AsyncCheckpointer:
             raise err
 
     def save(self, step: int, tree: PyTree, extra: Optional[Dict] = None) -> None:
+        """Copy the tree to the host (a DTensor leaf gathered here, on the
+        caller's thread, by every rank) and queue the write (rank 0's only,
+        for a sharded tree)."""
         self._raise_pending()
+        tree, sharded = _gathered(tree)
+        self._sharded |= sharded
         host = tree_map(lambda a: a.detach().to("cpu", copy=True), tree)
-        self._q.put((step, host, extra))
+        if not sharded or _writes():
+            self._q.put((step, host, extra))
 
     def wait(self) -> None:
+        """Drain pending saves; after a sharded save the ranks meet at a
+        barrier, so that every rank sees the writes of rank 0."""
         self._q.join()
         self._raise_pending()
+        if self._sharded:
+            dist.barrier()
 
     def close(self) -> None:
         self.wait()

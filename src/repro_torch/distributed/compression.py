@@ -7,7 +7,9 @@ Two pieces:
     quantization residual is carried in the error state and added back the
     next time (error feedback keeps the scheme unbiased in the long run).
   * ``all_reduce_int8`` — an int8 all-gather-based all-reduce over a
-    ``torch.distributed`` process group (NCCL on the card, gloo on the CPU).
+    ``torch.distributed`` process group (NCCL on the card, gloo on the CPU):
+    a mesh axis of the active ``shard_ctx`` named as in the reference
+    (``axis``, that mesh dim's group), or a group given as it is.
 
 ``use_kernels`` takes the values of ``ModelConfig.use_kernels``: ``"cuda"``
 quantizes through ``kernels.quant.quantize_int8`` (the CUDA kernel for CUDA
@@ -19,7 +21,7 @@ any other is ``(-1, last)``.
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -85,14 +87,24 @@ def ef_compress_grads(
     return new_g, new_e
 
 
-def all_reduce_int8(x: torch.Tensor, group=None, use_kernels: str = "cuda") -> torch.Tensor:
-    """Int8 all-gather + local sum over ``group`` (the default group when
-    None): every rank quantizes its ``x``, gathers every rank's codes and
-    scales, and sums the dequantized shards in rank order in float32.
+def all_reduce_int8(x: torch.Tensor, axis: Optional[str] = None, *, group=None,
+                    use_kernels: str = "cuda") -> torch.Tensor:
+    """Int8 all-gather + local sum over the ranks of mesh axis ``axis`` of
+    the active ``shard_ctx`` (``mesh.get_group(axis)``), or over ``group``
+    (the default group when both are None): every rank quantizes its ``x``,
+    gathers every rank's codes and scales, and sums the dequantized shards in
+    rank order in float32.
 
     Wire cost per rank: (N-1)·B/4 int8 against 2·(N-1)/N·B float32 for a
     ring all-reduce.
     """
+    if axis is not None:
+        from repro_torch.distributed.sharding import current_ctx
+
+        ctx = current_ctx()
+        if ctx is None or group is not None:
+            raise ValueError(f"all_reduce_int8(axis={axis!r}) needs a shard_ctx and no group")
+        group = ctx.mesh.get_group(axis)
     q, s = _quantizer(use_kernels)(_rows(x))
     n = dist.get_world_size(group)
     qs = [torch.empty_like(q) for _ in range(n)]

@@ -8,6 +8,11 @@ whose forward is the fwd kernel and whose backward is the dQ and dK/dV
 kernels.  For CUDA tensors those are the CUDA kernels (``kernel.py``), which
 raise on what they do not take; for CPU tensors, their plain versions
 (``ref.py``).  Nothing falls back from one to the other.
+
+On DTensors (a sharded step, ``distributed/sharding.py``) the op runs on each
+rank's shards (``sharding.local_call``): batch and heads may stay sharded,
+the sequence is gathered first; a head split that the kv heads do not
+follow is gathered as well.
 """
 
 from __future__ import annotations
@@ -63,7 +68,20 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(
+def flash_attention(q, k, v, **kw) -> torch.Tensor:
+    """Multi-head GQA flash attention, differentiable (:func:`flash_attention_local`
+    on plain tensors, on each rank's shards for DTensors)."""
+    from repro_torch.distributed import sharding as sh
+
+    if not sh.is_sharded(q, k, v):
+        return flash_attention_local(q, k, v, **kw)
+    # batch and heads stay split where the kv heads can follow the split
+    pq = sh.divisible(sh.keep_shards(q, (0, 2)), 2, k.shape[2], q.device_mesh)
+    return sh.local_call(lambda q, k, v: flash_attention_local(q, k, v, **kw), (q, k, v),
+                         (pq, pq, pq), pq)
+
+
+def flash_attention_local(
     q: torch.Tensor,  # (B, S_q, H, hd)
     k: torch.Tensor,  # (B, S_k, KV, hd)
     v: torch.Tensor,

@@ -12,6 +12,11 @@ has no VJP (it trains by autodiff of an ``einsum``), so the backward is:
   rounded once to ``w.dtype`` (the reference's float32-accumulated einsum);
   on CPU tensors, which that call has no kernel for, the same product on
   float32 (float64) casts.
+
+On DTensors the product runs on each rank's shards (``sharding.local_call``):
+the group (expert) dim and the rows of ``x`` may stay sharded, ``w`` follows
+``x``'s expert split and is gathered elsewhere; so dx and dW are computed on
+the shards too, dW a partial sum over split rows.
 """
 
 from __future__ import annotations
@@ -56,4 +61,11 @@ class GroupedMatmul(torch.autograd.Function):
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (E, C, d) x w (E, d, f) -> (E, C, f)`` in ``x.dtype``, float32
     accumulation; differentiable."""
-    return GroupedMatmul.apply(x, w)
+    from repro_torch.distributed import sharding as sh
+
+    if not sh.is_sharded(x, w):
+        return GroupedMatmul.apply(x, w)
+    px = sh.keep_shards(x, (0, 1))
+    pw = sh.mapped(px, {0: 0})
+    return sh.local_call(GroupedMatmul.apply, (x, w), (px, pw), px,
+                         grad_placements=(px, sh.partial_where_split(pw, px)))

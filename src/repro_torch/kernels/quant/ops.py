@@ -5,7 +5,8 @@ kernel (``kernel.py``) for CUDA tensors, which raises on what it does not
 take, and the plain version (``ref.py``) for CPU tensors; nothing falls back
 from one to the other.  The kernel takes any row count (no ``block_r``), so
 the wrapper has no divisibility rule to meet.  Dequantization is plain, in
-the reference too.
+the reference too.  On DTensors the rows may stay sharded
+(``sharding.local_call``); the last axis is gathered.
 """
 
 from __future__ import annotations
@@ -20,6 +21,11 @@ from repro_torch.kernels.quant import kernel, ref
 def quantize_int8(x: torch.Tensor):
     """``x (..., d) -> (q int8 of x's shape, scale float32 (..., 1))``,
     symmetric per row of the last axis."""
+    from repro_torch.distributed import sharding as sh
+
+    if sh.is_sharded(x):
+        px = sh.keep_shards(x, range(x.dim() - 1))
+        return sh.local_call(quantize_int8, (x,), (px,), (px, px))
     shape = tuple(x.shape)
     x2 = x.reshape(math.prod(shape[:-1]), shape[-1])
     if x2.device.type == "cuda":

@@ -8,6 +8,10 @@ tensors; nothing falls back from one to the other.  The kernel is a forward,
 as the reference's is (no VJP); the SSM mixer trains through it with
 ``model/ssm.py::SSDScan``, whose backward is the vjp of the plain
 ``ssd_chunked`` (the reference's own backward).
+
+On DTensors (:func:`on_shards`) batch and SSD heads may stay sharded; the
+sequence and the head dim are gathered first, and the inputs shared across a
+head split (``B``, ``C``) or a batch split (``A``) take partial gradients.
 """
 
 from __future__ import annotations
@@ -17,7 +21,29 @@ import torch
 from repro_torch.kernels.ssd_scan import kernel, ref
 
 
-def ssd_scan(
+def on_shards(fn, x, dt, A, B_, C_):
+    """``fn(x, dt, A, B_, C_) -> (y, final_state)`` with ``ssd_scan``'s
+    layout, run on each rank's shards when the inputs are DTensors (else
+    called as it is)."""
+    from repro_torch.distributed import sharding as sh
+
+    if not sh.is_sharded(x, dt, A, B_, C_):
+        return fn(x, dt, A, B_, C_)
+    px = sh.keep_shards(x, (0, 2))
+    pdt, pa, pbc = sh.mapped(px, {0: 0, 2: 2}), sh.mapped(px, {2: 0}), sh.mapped(px, {0: 0})
+    ins = (px, pdt, pa, pbc, pbc)
+    grads = tuple(sh.partial_where_split(p, px) for p in ins)
+    return sh.local_call(fn, (x, dt, A, B_, C_), ins, (px, sh.mapped(px, {0: 0, 2: 1})),
+                         grad_placements=grads)
+
+
+def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 128):
+    """The chunked scan (:func:`ssd_scan_local`), on each rank's shards for
+    DTensors."""
+    return on_shards(lambda *a: ssd_scan_local(*a, chunk=chunk), x, dt, A, B_, C_)
+
+
+def ssd_scan_local(
     x: torch.Tensor,   # (B, S, nh, P)
     dt: torch.Tensor,  # (B, S, nh)  positive step sizes
     A: torch.Tensor,   # (nh,)       negative

@@ -1,6 +1,6 @@
 """Batched serving entry point: prefill, then greedy decode until every sequence
 has emitted EOS or the length budget is spent (port of
-``repro/launch/serve.py``, one card, no mesh).
+``repro/launch/serve.py``).
 
 The reference's decode is one jitted ``lax.while_loop``; here it is a Python
 loop over ``lm.decode_step`` that reads one flag per step ("is every
@@ -9,6 +9,14 @@ first decode step writes at position ``S_p`` (the position after the
 prompt); the reference's loop passes ``S_p + i`` from ``i = 1``, one
 position further, which leaves one empty key in every attention cache (an
 SSM model is unaffected).  ROADMAP C records it.
+
+``make_generate(cfg, mesh, rules, ...)`` runs prefill and decode under
+``shard_ctx(mesh, rules)``, as the reference's: parameters placed as
+DTensors (``distributed/sharding.py::place``), the prompt placed by its
+``("batch", "seq")`` axes, the prefill cache spliced into the decode cache
+by padding and constrained to ``lm.cache_logical`` (one splice, with or
+without a context); the emitted tokens are
+gathered to every rank.  ``mesh=None`` generates without a context.
 
 ``device=None`` means ``cuda:0`` and raises when CUDA is not available;
 ``device="cpu"`` serves on the CPU with the kernels' plain versions.
@@ -27,40 +35,63 @@ from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.steps import serving_mode
 from repro_torch.model import lm
 from repro_torch.model.layers import resolve_device
+from repro_torch.pytree import tree_flatten
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, sh.DTensor) else t
+
+
+def _splice(cfg, small, B: int, max_len: int):
+    """The prefill cache padded with zeros into a ``max_len`` decode cache,
+    each leaf constrained to its ``cache_logical`` axes (the reference's
+    ``jnp.pad`` splice; ``constrain`` is the identity without a context)."""
+    big = lm.init_cache(cfg, B, max_len, device="meta")
+    logical = lm.cache_logical(cfg)
+    out = {}
+    for key, leaves in small.items():
+        out[key] = {}
+        for name, s in leaves.items():
+            pads = []
+            for b, n in zip(reversed(big[key][name].shape), reversed(s.shape)):
+                pads += [0, b - n]
+            out[key][name] = sh.constrain(F.pad(s.to(big[key][name].dtype), pads),
+                                          logical[key][name])
+    return out
 
 
 def prefill_cache(params, cfg, prompt_tokens: torch.Tensor, max_len: int):
     """Prefill ``prompt_tokens (B, S_p)`` and splice its cache into the
     leading corner of a ``max_len`` decode cache.  Returns ``(last-token
     logits (B, Vp) float32, cache)``."""
-    with torch.inference_mode():
-        B, S_p = prompt_tokens.shape
+    with serving_mode():
         logits, small = lm.prefill(params, cfg, tokens=prompt_tokens)
-        cache = lm.init_cache(cfg, B, max_len, prompt_tokens.device)
-        for key, leaves in small.items():
-            for name, s in leaves.items():
-                cache[key][name][tuple(slice(0, n) for n in s.shape)].copy_(s)
-        return logits, cache
+        return logits, _splice(cfg, small, prompt_tokens.shape[0], max_len)
 
 
 def greedy_decode(params, cfg, cache, tok0: torch.Tensor, S_p: int, *, max_new: int,
                   eos_id: int = 2) -> Tuple[torch.Tensor, int]:
     """Greedy decode from the first tokens ``tok0`` at position ``S_p``.
     Returns ``(tokens (B, max_new) int32 with tok0 first, steps)``; a finished
-    sequence pads with ``eos_id``."""
-    with torch.inference_mode():
+    sequence pads with ``eos_id``.  Inside a ``shard_ctx`` the tokens are
+    gathered each step and enter the next step replicated."""
+    with serving_mode():
+        tok0 = _full(tok0)
         B = tok0.shape[0]
         out = torch.zeros((B, max_new), dtype=torch.int32, device=tok0.device)
         out[:, 0] = tok0
         done = tok0 == eos_id
         tok, i = tok0, 1
         while i < max_new and not bool(done.all()):
-            logits, cache = lm.decode_step(params, cfg, cache, tok, S_p + i - 1)
-            nxt = torch.argmax(logits, -1).to(torch.int32)
+            logits, cache = lm.decode_step(params, cfg, cache, sh.replicate(tok), S_p + i - 1)
+            nxt = _full(torch.argmax(logits, -1)).to(torch.int32)
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
             out[:, i] = nxt
             done = done | (nxt == eos_id)
@@ -68,13 +99,30 @@ def greedy_decode(params, cfg, cache, tok0: torch.Tensor, S_p: int, *, max_new: 
         return out, i
 
 
-def make_generate(cfg, *, max_new: int, eos_id: int = 2):
-    def generate(params, prompt_tokens: torch.Tensor):
-        """prompt_tokens: (B, S_p) int -> (tokens (B, max_new), n_steps)."""
+def make_generate(cfg, mesh, rules, *, max_new: int, eos_id: int = 2):
+    """``generate(params, prompt_tokens)`` under ``shard_ctx(mesh, rules)``
+    (``mesh=None``: no context).  Plain parameters or prompt are placed on
+    the mesh first."""
+    shardings = sh.defs_shardings(lm.model_defs(cfg), mesh, rules) if mesh is not None else None
+
+    def run(params, prompt_tokens):
         S_p = prompt_tokens.shape[1]
         logits, cache = prefill_cache(params, cfg, prompt_tokens, S_p + max_new)
         tok0 = torch.argmax(logits, -1).to(torch.int32)
         return greedy_decode(params, cfg, cache, tok0, S_p, max_new=max_new, eos_id=eos_id)
+
+    def generate(params, prompt_tokens: torch.Tensor):
+        """prompt_tokens: (B, S_p) int -> (tokens (B, max_new), n_steps)."""
+        if mesh is None:
+            return run(params, prompt_tokens)
+        leaves, treedef = tree_flatten(params)
+        if not isinstance(leaves[0], sh.DTensor):
+            params = sh.place(params, shardings)
+        with sh.shard_ctx(mesh, rules):
+            if not isinstance(prompt_tokens, sh.DTensor):
+                prompt_tokens = sh.distribute_tensor(
+                    prompt_tokens, mesh, sh.ctx_placements(("batch", "seq"), prompt_tokens.shape))
+            return run(params, prompt_tokens)
 
     return generate
 

@@ -6,34 +6,63 @@ gradients by autograd, optionally accumulated in float32 over microbatches,
 then the AdamW update.  ``make_prefill_step(cfg)`` and
 ``make_decode_step(cfg)`` return the serving steps, ``lm.prefill`` and
 ``lm.decode_step`` under ``torch.inference_mode()`` (no gradient is recorded,
-so the SSD scan kernel may run).  One card, no sharding constraints.  The
-dry-run spec functions (``batch_specs``, ``cell_specs``, ...) wait for
-``launch/dryrun``.
+so the SSD scan kernel may run; ``no_grad`` inside a ``shard_ctx``).
+
+Sharded steps run under ``shard_ctx(mesh, rules)`` with parameters and
+optimizer state placed as DTensors; ``batch_specs``, ``params_specs`` and
+``opt_specs`` give each argument's abstract form (meta-device tensors, the
+reference's ``ShapeDtypeStruct``s) and logical axes, ``specs_to_pspecs``
+their PartitionSpecs, as the reference's step placement reads them.  A
+plain batch handed to a train step inside a context is placed by its
+``batch_specs`` axes.  (``cache_specs``, ``cell_specs`` and
+``default_accum_steps`` wait for the dry-run, ROADMAP A8c.)
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.distributed import sharding as sh
 from repro_torch.model import lm
-from repro_torch.optim import OptConfig, adamw_update
+from repro_torch.model.layers import logical_axes as defs_logical
+from repro_torch.model.layers import torch_dtype
+from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 METRIC_KEYS = ("loss", "ce", "moe_balance", "moe_zloss", "tokens")
 
 
+BATCH_LOGICAL = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+                 "embeds": ("batch", "seq", None)}
+
+
 def _as_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    def put(a):
+    """The batch on ``device``; inside a ``shard_ctx``, a plain leaf placed
+    by its logical axes."""
+    ctx = sh.current_ctx()
+
+    def put(k, a):
+        if isinstance(a, sh.DTensor):
+            return a
         if isinstance(a, np.ndarray):
             a = torch.from_numpy(a)
-        return a.to(device)
+        a = a.to(device)
+        if ctx is not None:
+            a = sh.distribute_tensor(a, ctx.mesh, sh.ctx_placements(BATCH_LOGICAL[k], a.shape))
+        return a
 
-    return {k: put(v) for k, v in batch.items()}
+    return {k: put(k, v) for k, v in batch.items()}
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, sh.DTensor):
+        return torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def make_train_step(cfg: ModelConfig, opt: OptConfig, accum_steps: int = 1):
@@ -56,8 +85,7 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, accum_steps: int = 1):
             metrics, grads = loss_and_grads(params, batch)
         else:
             micro = {k: v.chunk(accum_steps, dim=0) for k, v in batch.items()}
-            g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            g_sum = tree_map(_zeros_f32, params)
             m_sum = {k: 0.0 for k in METRIC_KEYS}
             for i in range(accum_steps):
                 m, g = loss_and_grads(params, {k: v[i] for k, v in micro.items()})
@@ -71,9 +99,15 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, accum_steps: int = 1):
     return train_step
 
 
+def serving_mode():
+    """``inference_mode`` on one device; ``no_grad`` inside a ``shard_ctx``
+    (DTensor cannot wrap inference tensors)."""
+    return torch.no_grad() if sh.current_ctx() is not None else torch.inference_mode()
+
+
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
-        with torch.inference_mode():
+        with serving_mode():
             return lm.prefill(params, cfg, tokens=batch.get("tokens"),
                               embeds=batch.get("embeds"))
 
@@ -82,7 +116,59 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     def serve_step(params, cache, tokens, pos):
-        with torch.inference_mode():
+        with serving_mode():
             return lm.decode_step(params, cfg, cache, tokens, pos)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-device tensors + logical axes)
+# ---------------------------------------------------------------------------
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell) -> Tuple[Dict, Dict]:
+    """(meta tensor dict, logical-axes dict) for a train/prefill batch."""
+    B, S = cell.global_batch, cell.seq_len
+    meta = dict(device="meta")
+    specs: Dict[str, Any] = {}
+    logical: Dict[str, Any] = {}
+    if cfg.frontend == "none":
+        specs["tokens"] = torch.empty((B, S), dtype=torch.int32, **meta)
+        logical["tokens"] = BATCH_LOGICAL["tokens"]
+    else:
+        specs["embeds"] = torch.empty((B, S, cfg.d_model), dtype=torch_dtype(cfg.dtype), **meta)
+        logical["embeds"] = BATCH_LOGICAL["embeds"]
+    if cell.kind == "train":
+        specs["labels"] = torch.empty((B, S), dtype=torch.int32, **meta)
+        logical["labels"] = BATCH_LOGICAL["labels"]
+    return specs, logical
+
+
+def params_specs(cfg: ModelConfig) -> Tuple[PyTree, PyTree]:
+    defs = lm.model_defs(cfg)
+    return lm.abstract_model(cfg), defs_logical(defs)
+
+
+def opt_specs(cfg: ModelConfig, opt: OptConfig) -> Tuple[PyTree, PyTree]:
+    abstract = init_opt_state(lm.abstract_model(cfg), opt)
+    plog = defs_logical(lm.model_defs(cfg))
+    logical = {
+        "m": plog,
+        "v": plog,
+        "step": (),
+    }
+    if opt.keep_master:
+        logical["master"] = plog
+    return abstract, logical
+
+
+def specs_to_pspecs(specs: PyTree, logical: PyTree, mesh, rules) -> PyTree:
+    """Map (meta tensor tree, logical tree) -> PartitionSpec tree."""
+    leaves, treedef = tree_flatten(specs)
+    is_axes = lambda x: isinstance(x, tuple) and all(  # noqa: E731
+        a is None or isinstance(a, str) for a in x)
+    axes = tree_flatten(logical, is_leaf=is_axes)[0]
+    assert len(axes) == len(leaves), (len(axes), len(leaves))
+    return tree_unflatten(treedef, [sh.make_pspec(lg, s.shape, mesh, rules)
+                                    for s, lg in zip(leaves, axes)])

@@ -3,8 +3,10 @@
 Wires together: config -> data-pipeline actors (host threads) -> the train
 step on the card (``launch/steps.py``; attention through the CUDA flash
 kernels unless ``cfg.use_kernels == "off"``) -> async checkpointing ->
-fault-tolerant supervisor.  There is no mesh and no sharding context: the
-sharding rules wait for ROADMAP A8b.
+fault-tolerant supervisor.  It runs without a mesh: the reference's
+``make_test_mesh`` needs no process group, the port's does (``launch/
+mesh.py``).  A sharded step is ``launch/steps.py``'s under ``shard_ctx`` with
+the parameters placed (``distributed/sharding.py``).
 
 ``device=None`` means ``cuda:0`` and raises when CUDA is not available;
 ``device="cpu"`` runs everything on the CPU with the kernels' plain versions

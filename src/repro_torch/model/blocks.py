@@ -15,7 +15,7 @@ from repro_torch.configs.base import FFN_DENSE, FFN_NONE, MIXER_ATTN, BlockKind
 from repro_torch.model.attention import attention, attn_defs
 from repro_torch.model.layers import mlp_defs, norm_defs, rms_norm, swiglu
 from repro_torch.model.moe import moe_defs, moe_ffn
-from repro_torch.model.ssm import init_ssm_cache, ssm_defs, ssm_mixer
+from repro_torch.model.ssm import init_ssm_cache, ssm_cache_logical, ssm_defs, ssm_mixer
 
 
 def block_defs(cfg, kind: BlockKind) -> Dict[str, Any]:
@@ -38,6 +38,13 @@ def init_block_cache(cfg, kind: BlockKind, batch: int, cache_len: int, dtype,
             "v": torch.zeros((batch, cache_len, kv, hd), dtype=dtype, device=device),
         }
     return init_ssm_cache(cfg, batch, dtype, device)
+
+
+def block_cache_logical(cfg, kind: BlockKind):
+    if kind.mixer == MIXER_ATTN:
+        ax = ("kv_batch", "kv_seq", "kv_heads", None)
+        return {"k": ax, "v": ax}
+    return ssm_cache_logical(cfg)
 
 
 def block_fwd(

@@ -3,8 +3,9 @@
 
 Parameters are plain nested dicts of tensors.  Every leaf is described by a
 :class:`ParamDef` carrying its shape, its logical axis names and an init rule;
-the logical axes are kept for the sharding rules of a later slice and are not
-read on one card.
+``distributed/sharding.py`` maps the logical axes onto a mesh (the model code
+never names a mesh axis), and the constraints of ``swiglu`` are the
+reference's (identities without a ``shard_ctx``).
 
 Init draws from an explicit ``torch.Generator`` with the reference's rules
 (fan-in scaled normal at the def's scale, zeros, ones, the SSM rules), on
@@ -38,7 +39,7 @@ from typing import Any, Dict, Tuple, Union
 import torch
 
 from repro_torch.paramdef import ParamDef, is_paramdef
-from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -101,6 +102,21 @@ def init_leaf(d: ParamDef, gen: torch.Generator, default_dtype,
     return (torch.randn(d.shape, generator=gen, dtype=torch.float32) * scale).to(dtype)
 
 
+def abstract_params(defs: PyTree, default_dtype="bfloat16") -> PyTree:
+    """Meta-device tensors of the defs' shapes and dtypes (no storage)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype or default_dtype),
+                                          device="meta"), defs, is_leaf=is_paramdef)
+
+
+def logical_axes(defs: PyTree) -> PyTree:
+    """Tree of logical-axis tuples with the same structure as the params."""
+    return tree_map(lambda d: d.logical, defs, is_leaf=is_paramdef)
+
+
+def param_count(defs: PyTree) -> int:
+    return sum(math.prod(d.shape) for d in tree_leaves(defs, is_leaf=is_paramdef))
+
+
 def init_params(defs: PyTree, seed: int = 0, default_dtype="bfloat16",
                 device: Union[None, str, torch.device] = None) -> PyTree:
     """Draw every leaf on ``device`` (``None``: ``cuda:0``) from one generator
@@ -147,9 +163,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables computed on the fly.  positions: any shape of ints."""
+    from repro_torch.distributed.sharding import replicate
+
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    inv_freq = 1.0 / (theta ** exps)
+    inv_freq = replicate(1.0 / (theta ** exps))
     ang = positions.float()[..., None] * inv_freq  # (..., half)
     return torch.cos(ang), torch.sin(ang)
 
@@ -184,7 +202,15 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
+    from repro_torch.distributed.sharding import constrain, current_ctx
+
     h = silu(dense(x, w_gate)) * dense(x, w_up)
+    ctx = current_ctx()
+    if ctx is not None and ctx.rules.get("ffn_act_seq"):
+        # seq-sharded down-projection: a2a the activation, gather the weight
+        h = constrain(h, ("batch", "ffn_act_seq", None))
+    else:
+        h = constrain(h, ("batch", "seq_full", "ff"))  # Megatron row-parallel
     return dense(h, w_down)
 
 

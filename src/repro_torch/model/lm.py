@@ -38,7 +38,20 @@ The forward sums the MoE blocks' aux losses (load balance, router z-loss)
 per period and then over periods, as the reference's ``_acc_aux`` and scan
 do, in every branch (collecting caches, without gradients, recomputed).
 
-Not ported yet: ``batch_chunks > 1`` raises (ROADMAP A8b).
+``cfg.batch_chunks > 1`` runs each block over the batch in that many chunks,
+one after another inside the block (the reference's ``f_chunked``: its
+weight gathers then happen once a block, not once a chunk), summing the
+chunks' aux losses; under ``remat="block"`` the whole chunked block is one
+checkpoint, under ``"save_dispatch"`` an MoE block's chunks each run as the
+two checkpoints above.  It does not apply while collecting caches.
+
+Under a ``shard_ctx`` (``distributed/sharding.py``) parameters and batch are
+DTensors; the embedding, the blocks' outputs, the CE chunks and the serving
+logits carry the reference's constraints, the CE runs over sequence-sharded
+chunks (one (B, P, chunk) slice of every sequence shard at a time), and the
+tensors made inside the step (positions, the vocabulary mask, the aux
+zeros) enter the mesh replicated.  The stacked layers are unbound on the
+``layers`` axis, which is never sharded.
 """
 
 from __future__ import annotations
@@ -50,9 +63,18 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FFN_MOE, ModelConfig
-from repro_torch.model.blocks import block_defs, block_fwd, block_mixer, init_block_cache
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constrain, replicate
+from repro_torch.model.blocks import (
+    block_cache_logical,
+    block_defs,
+    block_fwd,
+    block_mixer,
+    init_block_cache,
+)
 from repro_torch.model.layers import (
     ParamDef,
+    abstract_params,
     dense,
     init_params,
     norm_defs,
@@ -61,8 +83,8 @@ from repro_torch.model.layers import (
     stack_defs,
     torch_dtype,
 )
-from repro_torch.model.moe import moe_combine, moe_dispatch
-from repro_torch.pytree import tree_flatten, tree_unflatten
+from repro_torch.model.moe import _seq_shards, moe_combine, moe_dispatch
+from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
 REMAT_POLICIES = ("block", "none", "save_dispatch")
@@ -96,6 +118,11 @@ def init_model(cfg: ModelConfig, seed: int = 0,
                        resolve_device(device, "init_model"))
 
 
+def abstract_model(cfg: ModelConfig) -> PyTree:
+    """Meta-device tensors of every parameter's shape and dtype."""
+    return abstract_params(model_defs(cfg), cfg.param_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -107,7 +134,7 @@ def _embed_in(params, cfg, tokens=None, embeds=None):
         x = dense(embeds.to(dtype), params["frontend"]["proj"])
     else:
         x = F.embedding(tokens.long(), params["embed"]["tok"])
-    return x.to(dtype)
+    return constrain(x.to(dtype), ("batch", "seq", "embed"))
 
 
 def _head_w(params):
@@ -119,14 +146,14 @@ def _head_w(params):
 def _vocab_mask(cfg, device=None) -> torch.Tensor:
     """(Vp,) additive mask: -1e30 on padded vocab entries."""
     idx = torch.arange(cfg.padded_vocab, device=device)
-    return torch.where(idx < cfg.vocab_size, 0.0, -1e30).float()
+    return replicate(torch.where(idx < cfg.vocab_size, 0.0, -1e30).float())
 
 
 AUX_KEYS = ("moe_balance", "moe_zloss")
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
-    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
+    return {k: replicate(torch.zeros((), dtype=torch.float32, device=device)) for k in AUX_KEYS}
 
 
 def _acc_aux(tot, aux):
@@ -148,16 +175,11 @@ def forward_hidden(
     params, cfg: ModelConfig, tokens=None, embeds=None, *, collect_cache: bool = False
 ):
     """Full-sequence forward.  Returns (hidden (B,S,d), aux, cache_or_None)."""
-    if cfg.batch_chunks > 1:
-        raise NotImplementedError(
-            "batch_chunks > 1 (in-block batch chunking) is not ported: it only "
-            "pays with sharded weights (ROADMAP A8b, sharding)"
-        )
     if cfg.remat not in REMAT_POLICIES:
         raise NotImplementedError(f"remat policy {cfg.remat!r} is not one of {REMAT_POLICIES}")
     x = _embed_in(params, cfg, tokens, embeds)
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = replicate(torch.arange(S, dtype=torch.int32, device=x.device))
     pattern = cfg.pattern()
     layers = {
         f"pos{i}": _unstack(params["layers"][f"pos{i}"], cfg.num_periods)
@@ -167,7 +189,7 @@ def forward_hidden(
     def block(kind):
         def f(p, x):
             x, _, aux = block_fwd(p, x, kind, cfg, positions)
-            return x, aux
+            return constrain(x, ("batch", "seq", "embed")), aux
 
         return f
 
@@ -182,9 +204,47 @@ def forward_hidden(
         return f
 
     def combine(p, x, h, buf, route):
-        return x + moe_combine(p["ffn"], h, buf, route, cfg)
+        return constrain(x + moe_combine(p["ffn"], h, buf, route, cfg), ("batch", "seq", "embed"))
 
-    remat = dict(use_reentrant=False, preserve_rng_state=False)
+    def ckpt(fn, *args):
+        # the recompute runs under this forward's shard context
+        return checkpoint(sh.bind(fn), *args, use_reentrant=False, preserve_rng_state=False)
+
+    def run(kind, p, x):
+        """One block of one batch chunk under the remat policy; the chunked
+        block under ``"block"`` is checkpointed whole by the caller."""
+        if cfg.remat == "none" or not torch.is_grad_enabled():
+            return block(kind)(p, x)
+        if cfg.remat == "save_dispatch" and kind.ffn == FFN_MOE:
+            # two checkpoints: the buffer between them is saved, and with
+            # it the residual, the normed h and the route
+            x, h, buf, route, aux = ckpt(dispatch(kind), p, x)
+            return ckpt(combine, p, x, h, buf, route), aux
+        return ckpt(block(kind), p, x)
+
+    nb = cfg.batch_chunks
+    if B % nb:
+        raise ValueError(f"batch_chunks={nb} does not divide the batch {B}")
+
+    def chunked(kind, inner):
+        # weight-stationary accumulation: the batch chunks run one after
+        # another inside the block, and their aux losses are summed
+        def f(p, x):
+            xc = constrain(x.reshape(nb, B // nb, *x.shape[1:]), (None, "batch", "seq", "embed"))
+            ys, auxs = zip(*(inner(kind, p, xc[i]) for i in range(nb)))
+            y = constrain(torch.stack(ys).reshape(x.shape), ("batch", "seq", "embed"))
+            return y, {k: torch.sum(torch.stack([a[k] for a in auxs]), dim=0)
+                       for k in auxs[0]}
+
+        return f
+
+    def one_block(kind, p, x):
+        if nb <= 1:
+            return run(kind, p, x)
+        if cfg.remat == "block" and torch.is_grad_enabled():
+            plain = lambda kind, p, x: block(kind)(p, x)  # noqa: E731
+            return ckpt(chunked(kind, plain), p, x)
+        return chunked(kind, run)(p, x)
 
     caches: Dict[str, List[Any]] = {f"pos{i}": [] for i in range(len(pattern))}
     period_aux = []
@@ -194,16 +254,10 @@ def forward_hidden(
             p = layers[f"pos{i}"][period]
             if collect_cache:
                 x, cache, aux = block_fwd(p, x, kind, cfg, positions, return_cache=True)
+                x = constrain(x, ("batch", "seq", "embed"))
                 caches[f"pos{i}"].append(cache)
-            elif cfg.remat == "none" or not torch.is_grad_enabled():
-                x, aux = block(kind)(p, x)
-            elif cfg.remat == "save_dispatch" and kind.ffn == FFN_MOE:
-                # two checkpoints: the buffer between them is saved, and
-                # with it the residual, the normed h and the route
-                x, h, buf, route, aux = checkpoint(dispatch(kind), p, x, **remat)
-                x = checkpoint(combine, p, x, h, buf, route, **remat)
             else:
-                x, aux = checkpoint(block(kind), p, x, **remat)
+                x, aux = one_block(kind, p, x)
             aux_tot = _acc_aux(aux_tot, aux)
         period_aux.append(aux_tot)
     aux = {k: torch.sum(torch.stack([a[k] for a in period_aux]), dim=0) for k in AUX_KEYS}
@@ -255,7 +309,20 @@ def head_logits(h: torch.Tensor, w: torch.Tensor, kernels: str) -> torch.Tensor:
     ``preferred_element_type=float32``.  Half-precision CUDA operands under
     ``kernels != "off"`` go through :class:`_HeadF32`; CPU tensors (the call
     has no CPU kernel), float32 and ``"off"`` cast to float32 first, which
-    computes the same product."""
+    computes the same product.
+
+    On DTensors it runs on each rank's shards: h's rows and w's vocabulary
+    columns may stay split (each gradient a partial sum over the other's
+    split), the model dim is gathered."""
+    if sh.is_sharded(h, w):
+        ph = sh.keep_shards(h, range(h.dim() - 1))
+        pw = tuple(p if isinstance(p, sh.Shard) and p.dim == 1 and isinstance(q, sh.Replicate)
+                   else sh.Replicate() for p, q in zip(sh.keep_shards(w, (1,)), ph))
+        out = tuple(sh.Shard(h.dim() - 1) if isinstance(b, sh.Shard) else a
+                    for a, b in zip(ph, pw))
+        return sh.local_call(lambda h, w: head_logits(h, w, kernels), (h, w), (ph, pw), out,
+                             grad_placements=(sh.partial_where_split(ph, pw),
+                                              sh.partial_where_split(pw, ph)))
     if h.is_cuda and h.dtype == w.dtype and h.dtype in (torch.bfloat16, torch.float16) \
             and kernels != "off":
         return _HeadF32.apply(h.reshape(-1, h.shape[-1]), w).reshape(*h.shape[:-1], -1)
@@ -264,7 +331,7 @@ def head_logits(h: torch.Tensor, w: torch.Tensor, kernels: str) -> torch.Tensor:
 
 def _ce_chunk(h, labels, head_w, vmask, kernels):
     """(sum of token CE, count of valid tokens) over one sequence chunk."""
-    logits = head_logits(h, head_w, kernels) + vmask
+    logits = constrain(head_logits(h, head_w, kernels) + vmask, ("batch", None, None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
     lab = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
     valid = (labels >= 0).float()
@@ -278,14 +345,21 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     B, S, d = hidden.shape
     head_w = _head_w(params)
     vmask = _vocab_mask(cfg, hidden.device)
-    chunk = min(512, S)
-    while S % chunk:
+    # chunk the CE along the *local* sequence: one (B, P, chunk) slice of
+    # every sequence shard at a time
+    P = _seq_shards(S)
+    Sp = S // P
+    chunk = min(512, Sp)
+    while Sp % chunk:
         chunk //= 2
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    nc = Sp // chunk
+    h_r = constrain(hidden.reshape(B, P, nc, chunk, d), ("batch", "seq", None, None, None))
+    l_r = labels.reshape(B, P, nc, chunk)
+    tot = replicate(torch.zeros((), dtype=torch.float32, device=hidden.device))
     cnt = torch.zeros_like(tot)
-    for c0 in range(0, S, chunk):
+    for c in range(nc):
         t, n = checkpoint(
-            _ce_chunk, hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head_w, vmask,
+            sh.bind(_ce_chunk), h_r[:, :, c], l_r[:, :, c], head_w, vmask,
             cfg.use_kernels, use_reentrant=False, preserve_rng_state=False,
         )
         tot, cnt = tot + t, cnt + n
@@ -329,9 +403,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def cache_logical(cfg: ModelConfig) -> PyTree:
+    """Logical axes of every leaf of ``init_cache``'s tree."""
+    is_axes = lambda x: isinstance(x, tuple)  # noqa: E731
+    return {
+        f"pos{i}": tree_map(lambda ax: ("layers",) + ax, block_cache_logical(cfg, kind),
+                            is_leaf=is_axes)
+        for i, kind in enumerate(cfg.pattern())
+    }
+
+
 def _logits(h: torch.Tensor, params, cfg) -> torch.Tensor:
     """(B, d) hidden -> (B, Vp) float32 logits of the bf16/f32 values, masked."""
-    return head_logits(h, _head_w(params), cfg.use_kernels) + _vocab_mask(cfg, h.device)
+    logits = head_logits(h, _head_w(params), cfg.use_kernels) + _vocab_mask(cfg, h.device)
+    return constrain(logits, ("batch", "vocab"))
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, embeds=None):
@@ -351,7 +436,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
     dev = x.device
     pos_t = torch.as_tensor(pos, dtype=torch.long, device=dev)
     multi = pos_t.dim() == 1
-    positions = pos_t[:, None] if multi else pos_t.reshape(1)
+    positions = replicate(pos_t[:, None] if multi else pos_t.reshape(1))
     pattern = cfg.pattern()
     layers = {
         f"pos{i}": _unstack(params["layers"][f"pos{i}"], cfg.num_periods)
@@ -372,6 +457,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
             )
             for k, new in nc.items():
                 if new is not c[k]:
+                    if sh.is_sharded(new):
+                        new = sh.redistribute(new, c[k].placements)
                     c[k].copy_(new)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
     return _logits(x[:, 0, :], params, cfg), cache

@@ -1,12 +1,13 @@
 """Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch
-(port of ``repro/model/moe.py``, one card, no mesh).
+(port of ``repro/model/moe.py``).
 
-Dispatch groups are batch rows, as in the reference: each row sorts its
-(seq x k) assignments by expert and fills a capacity buffer of C slots per
-expert; decode-sized workloads (``B * S <= 4096``) use one global group.
-There is no mesh, so the reference's sequence shards are one per row
-(``_seq_shards`` is 1) and its sharding constraints and ``checkpoint_name``
-have no counterpart.
+Dispatch groups are (batch row x sequence shard), as in the reference: each
+group sorts its (tokens x k) assignments by expert and fills a capacity
+buffer of ``_capacity(S / P, ...)`` slots per expert, P the model-axis
+sequence shards of a ``shard_ctx`` (``_seq_shards``; 1 without one);
+decode-sized workloads (``B * S <= 4096``) use one global group.  So under a
+mesh whose ``model`` axis splits the sequence the MoE computes a different
+function from the unsharded one: the reference's, grouped by shard.
 
 The groups are handled together: group ``g`` writes its slot ``s`` of expert
 ``e`` to row ``g * C + s`` of one ``(E, G * C, d)`` buffer, so the expert
@@ -41,6 +42,15 @@ and the shared experts): the ``save_dispatch`` remat policy
 (``model/lm.py``) checkpoints the two halves apart, so that the buffer
 between them is saved (the reference's ``checkpoint_name(buf,
 "moe_dispatch")``).
+
+Under a ``shard_ctx`` the tensors are DTensors: each rank dispatches its own
+groups (``sharding.local_call``; the global group on gathered tokens), the
+buffer of its groups' rows is redistributed from token-sharded to
+expert-sharded (the reference's constraint pair: DTensor's all-to-all),
+the experts run on their shards and the output goes back the same way to
+the ranks that combine it.  A buffer's rows within an expert may then lie in
+another global order than the unsharded one's; every product is row by row
+and each rank combines the rows it dispatched, so the result is the same.
 """
 
 from __future__ import annotations
@@ -49,6 +59,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constrain, current_ctx
 from repro_torch.model.layers import ParamDef, dense, mlp_defs, silu, swiglu
 
 
@@ -168,6 +180,35 @@ def _aux_losses(probs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     return E * torch.sum(importance * load, dim=-1)
 
 
+def _seq_shards(seq: int) -> int:
+    ctx = current_ctx()
+    if ctx is None or ctx.rules.get("seq") != "model":
+        return 1
+    m = sh.ctx_axis_size("model")
+    return m if (m > 1 and seq % m == 0) else 1
+
+
+def _dispatch_local(x, probs, k: int, cap: int, groups_per_row: bool):
+    """Dispatch the tokens of x (B, S, d): one group per row, or one group
+    of all.  Returns (buf, rows, kept, gates, per-group balance)."""
+    B, S, d = x.shape
+    E = probs.shape[-1]
+    G, N = (B, S) if groups_per_row else (1, B * S)
+    p_g = probs.reshape(G, N, E)
+    buf, meta = _group_dispatch(x.reshape(G, N, d), p_g, k, cap)
+    return (buf, *meta[:3], _aux_losses(p_g, meta[3]))
+
+
+def _token_placements(shape, per_row: bool, mesh):
+    """Placements of the tokens a rank dispatches: its rows and, with
+    sequence shards, its shard (the constrained x's), or all tokens for
+    the global group."""
+    if not per_row:
+        return (sh.Replicate(),) * mesh.ndim
+    dims = (0, 1) if _seq_shards(shape[1]) > 1 else (0,)
+    return sh.keep(sh.ctx_placements(("batch", "seq", "embed"), shape), dims)
+
+
 def moe_dispatch(params, x: torch.Tensor, cfg):
     """x: (B, S, d) -> (buf (E, G*C, d), route, aux): ``route`` holds each
     token's k buffer rows, whether each was kept, and its gates, as
@@ -175,29 +216,51 @@ def moe_dispatch(params, x: torch.Tensor, cfg):
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
 
+    x = constrain(x, ("batch", "seq", "embed"))
     logits = dense(x, params["router"].to(x.dtype)).float()  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
 
-    # one global group for decode-sized workloads, else one group per row
-    G, N = (1, B * S) if B * S <= 4096 else (B, S)
-    cap = _capacity(N, k, E, cfg.capacity_factor)
-    p_g = probs.reshape(G, N, E)
-    buf, meta = _group_dispatch(x.reshape(G, N, d), p_g, k, cap)
-    balance = torch.mean(_aux_losses(p_g, meta[3]))
-    aux = {"moe_balance": balance.float(), "moe_zloss": z_loss.float()}
-    return buf, meta[:3], aux
+    # one global group for decode-sized workloads, else one group per
+    # (row, sequence shard)
+    per_row = B * S > 4096
+    cap = _capacity(S // _seq_shards(S) if per_row else B * S, k, E, cfg.capacity_factor)
+    if not sh.is_sharded(x):
+        buf, rows, kept, gates, bal = _dispatch_local(x, probs, k, cap, per_row)
+    else:
+        px = _token_placements(x.shape, per_row, x.device_mesh)
+        ptok = sh.mapped(px, {0: 0, 1: 0})
+        buf, rows, kept, gates, bal = sh.local_call(
+            lambda x, p: _dispatch_local(x, p, k, cap, per_row), (x, probs), (px, px),
+            (sh.mapped(px, {0: 1, 1: 1}), ptok, ptok, ptok, ptok),
+        )
+        # tokens -> experts all-to-all (sequence-sharded -> expert-sharded)
+        buf = constrain(buf, ("experts", "batch", None) if per_row else ("experts", None, None))
+    aux = {"moe_balance": torch.mean(bal).float(), "moe_zloss": z_loss.float()}
+    return buf, (rows, kept, gates), aux
 
 
 def moe_combine(params, x: torch.Tensor, buf: torch.Tensor, route, cfg) -> torch.Tensor:
     """The expert products on ``buf``, each token's rows combined, plus the
     shared experts on ``x`` (B, S, d) -> (B, S, d)."""
     out = _expert_ffn(params, buf, cfg.use_kernels)
-    y = _group_combine(out, route).reshape(x.shape)
+    if not sh.is_sharded(out):
+        y = _group_combine(out, route).reshape(x.shape)
+    else:
+        px = _token_placements(x.shape, x.shape[0] * x.shape[1] > 4096, out.device_mesh)
+        ptok = sh.mapped(px, {0: 0, 1: 0})
+        pbuf = sh.mapped(px, {0: 1, 1: 1})
+        local_shape = sh.local_shape(x.shape, px, out.device_mesh)
+        # experts -> tokens all-to-all back, to the ranks that dispatched
+        out = constrain(out, ("experts", None, None))
+        y = sh.local_call(
+            lambda o, r, kp, g: _group_combine(o, (r, kp, g)).reshape(local_shape),
+            (out, *route), (pbuf, ptok, ptok, ptok), px,
+        )
     if cfg.num_shared_experts:
-        sh = params["shared"]
-        y = y + swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
-    return y
+        sh_p = params["shared"]
+        y = y + swiglu(x, sh_p["w_gate"], sh_p["w_up"], sh_p["w_down"])
+    return constrain(y, ("batch", "seq", "embed"))
 
 
 def moe_ffn(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -1,5 +1,5 @@
 """Mamba-2 / SSD sequence mixer (port of ``repro/model/ssm.py``; state-space
-duality, arXiv:2405.21060), one card, no sharding rules.
+duality, arXiv:2405.21060), with the reference's sharding constraints.
 
 Prefill runs the chunked SSD algorithm: within a chunk the dual
 (attention-like) quadratic form, across chunks a linear recurrence on the
@@ -18,6 +18,12 @@ softplus of the step sizes is ``logaddexp(x, 0)``, the reference's
 ``jax.nn.softplus`` formula; ``F.softplus`` would turn linear above 20, an
 error below 3e-9.  The reference's ``jax.checkpoint`` around the chunk body
 is not needed: the port recomputes per block (``lm.forward_hidden``).
+
+Under a ``shard_ctx`` the projections carry the reference's constraints
+(``ssm_heads`` or ``ssm_hd``, as ``make_rules`` picks) and the chunked scan,
+in either mode, runs on each rank's batch and head shards
+(``kernels/ssd_scan/ops.py::on_shards``); the scan's inner constraints have
+no counterpart there, since a rank scans its shard whole.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import constrain
+from repro_torch.kernels.ssd_scan.ops import on_shards
 from repro_torch.model.layers import ParamDef, dense, rms_norm, silu
 
 
@@ -190,6 +199,15 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None):
     }
 
 
+def ssm_cache_logical(cfg):
+    return {
+        "state": ("batch", "ssm_heads", "ssm_hd", "ssm_state"),
+        "conv_x": ("batch", None, "tp"),
+        "conv_b": ("batch", None, None),
+        "conv_c": ("batch", None, None),
+    }
+
+
 def ssm_mixer(
     params,
     x: torch.Tensor,  # (B, S, d)
@@ -207,25 +225,28 @@ def ssm_mixer(
     nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
     f32 = torch.float32
 
-    xp = dense(x, params["w_x"])  # (B,S,di)
-    z = dense(x, params["w_z"])
-    bp = dense(x, params["w_b"])  # (B,S,ds)
-    cp = dense(x, params["w_c"])
+    xp = constrain(dense(x, params["w_x"]), ("batch", "seq_full", "tp"))  # (B,S,di)
+    z = constrain(dense(x, params["w_z"]), ("batch", "seq_full", "tp"))
+    bp = constrain(dense(x, params["w_b"]), ("batch", "seq_full", None))  # (B,S,ds)
+    cp = constrain(dense(x, params["w_c"]), ("batch", "seq_full", None))
     dt_raw = dense(x, params["w_dt"]).float()  # (B,S,nh)
     dt = softplus(dt_raw + params["dt_bias"].float())
+    dt = constrain(dt, ("batch", "seq_full", "ssm_heads"))
     A = -torch.exp(params["a_log"].float())  # (nh,)
 
     if cache is None:
-        xc = silu(_causal_conv(xp, params["conv_x"]))
+        xc = constrain(silu(_causal_conv(xp, params["conv_x"])), ("batch", "seq_full", "tp"))
         bc = silu(_causal_conv(bp, params["conv_b"]))
         cc = silu(_causal_conv(cp, params["conv_c"]))
-        xh = xc.reshape(B, S, nh, hd)
+        xh = constrain(sh.split_dim(xc, 2, (nh, hd)), ("batch", "seq_full", "ssm_heads", "ssm_hd"))
+        chunk = cfg.ssm_chunk
         if cfg.use_kernels == "cuda":
-            y, final_state = SSDScan.apply(xh, dt, A, bc, cc, cfg.ssm_chunk)
+            scan = lambda *a: SSDScan.apply(*a, chunk)  # noqa: E731
         elif cfg.use_kernels == "off":
-            y, final_state = ssd_chunked(xh, dt, A, bc, cc, cfg.ssm_chunk)
+            scan = lambda *a: ssd_chunked(*a, chunk)  # noqa: E731
         else:
             raise ValueError(f"use_kernels={cfg.use_kernels!r}, not 'off' or 'cuda'")
+        y, final_state = on_shards(scan, xh, dt, A, bc, cc)
         y = y + params["d_skip"].float()[:, None] * xh.float()
         new_cache = None
         if return_cache:
@@ -253,7 +274,9 @@ def ssm_mixer(
             "state": state, "conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c
         }
 
-    y = y.reshape(B, S, nh * hd).to(x.dtype)
+    y = sh.merge_dims(y, 2, 2).to(x.dtype)
+    y = constrain(y, ("batch", "seq_full", "tp"))
     y = rms_norm(y * silu(z), params["norm"], cfg.rmsnorm_eps, cfg.use_kernels)
     out = dense(y, params["w_out"])
+    out = constrain(out, ("batch", "seq", "embed"))
     return out, new_cache

@@ -8,6 +8,12 @@ its operations otherwise.)  Moments are float32; ``keep_master=True`` adds a
 float32 master copy.  The update is functional: it returns new tensors and
 leaves its inputs as they were; it runs over each leaf in slices, so that its
 float32 temporaries stay small beside the moments.
+
+Sharded (DTensor) parameters keep their moments as DTensors of the same
+placements.  The update is elementwise, so it runs on each rank's local
+shards (a gradient is first brought to its parameter's placements); the
+global gradient norm is one all-reduce of the ranks' local sums of squares,
+each leaf's divided by the number of ranks that hold a copy of its shard.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -50,6 +58,8 @@ def lr_at(opt: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state(params: PyTree, opt: OptConfig) -> Dict[str, Any]:
     def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     device = tree_leaves(params)[0].device
@@ -64,7 +74,37 @@ def init_opt_state(params: PyTree, opt: OptConfig) -> Dict[str, Any]:
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+    """The gradients' global norm.  DTensor leaves add their local shards'
+    sums of squares, each divided by its copies, and one all-reduce over
+    the mesh's ranks gives the total; plain leaves are summed as they are."""
+    leaves = tree_leaves(tree)
+    mesh = next((g.device_mesh for g in leaves if isinstance(g, DTensor)), None)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+
+    def local_sq(g):
+        if not isinstance(g, DTensor):
+            raise TypeError("global_norm: plain and sharded gradients mixed")
+        g = _reduced(g)
+        copies = math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                           if isinstance(p, Replicate))
+        return torch.sum(torch.square(g.to_local().float())) / copies
+
+    total = sum(local_sq(g) for g in leaves)
+    if mesh.size() == dist.get_world_size():
+        dist.all_reduce(total)
+    else:
+        for i in range(mesh.ndim):
+            dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
+
+
+def _reduced(g: DTensor) -> DTensor:
+    """``g`` with its partial sums reduced (its shards kept)."""
+    if not any(p.is_partial() for p in g.placements):
+        return g
+    return g.redistribute(g.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in g.placements])
 
 
 @torch.no_grad()
@@ -83,7 +123,14 @@ def adamw_update(
         """One leaf, in slices of ``SLICE`` elements (each element's
         operations are the same, so the result is the whole leaf's bit for
         bit) written into new tensors: the float32 temporaries of a stacked
-        expert weight would otherwise be gigabytes each."""
+        expert weight would otherwise be gigabytes each.  A DTensor leaf is
+        updated shard by shard."""
+        if isinstance(p, DTensor):
+            g = g.redistribute(p.device_mesh, p.placements)
+            outs = upd(*(t.to_local() for t in (src, p, g, m, v)))
+            wrap = lambda t: None if t is None else DTensor.from_local(  # noqa: E731
+                t, p.device_mesh, p.placements, run_check=False)
+            return (wrap(outs[0]).requires_grad_(p.requires_grad), *map(wrap, outs[1:]))
         new_p = torch.empty(p.shape, dtype=p.dtype, device=p.device)
         new_m, new_v = torch.empty_like(m), torch.empty_like(v)
         master = torch.empty_like(m) if opt.keep_master else None

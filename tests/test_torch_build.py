@@ -120,3 +120,47 @@ def test_build_library_renames_report_and_library_into_place(tmp_path, monkeypat
     assert lib.endswith(f"k_{source_tag(src, FLAGS)}.so")
     monkeypatch.setattr(build, "nvcc", lambda: "/nonexistent/nvcc")
     assert build.build_library(src, FLAGS)[2] == log
+
+
+def _smoke_main():
+    import ast
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    text = path.read_text()
+    (main,) = [n for n in ast.parse(text).body
+               if isinstance(n, ast.FunctionDef) and n.name == "main"]
+    return main, text
+
+
+def test_chip_smoke_main_runs_the_sharded_phase():
+    """Phase 15 (``phase_sharded``) is run by ``main()``, timed, after
+    phase 14, and its result feeds the kernels line."""
+    import ast
+
+    main, text = _smoke_main()
+    calls = [ast.get_source_segment(text, n) for n in ast.walk(main)
+             if isinstance(n, ast.Call) and getattr(n.func, "id", None) == "timed"]
+    phases = [c.split("(", 1)[1].split(",")[0].rstrip(")") for c in calls]
+    assert "phase_sharded" in phases
+    assert phases.index("phase_sharded") > phases.index("phase_train_kernels")
+
+
+def test_chip_smoke_kernels_line_names_the_sharded_path():
+    """Every ``launches_by_path`` of the flash, RMSNorm, SSD, ``moe_gmm``
+    and quantizer entries has a ``sharded`` key fed by phase 15."""
+    import ast
+
+    main, text = _smoke_main()
+    by_path = [ast.get_source_segment(text, kw.value) for n in ast.walk(main)
+               if isinstance(n, ast.Call) for kw in n.keywords if kw.arg == "launches_by_path"]
+    by_path += [ast.get_source_segment(text, n.value) for n in ast.walk(main)
+                if isinstance(n, ast.Assign) and any(
+                    isinstance(t, ast.Subscript) and getattr(t.slice, "value", None)
+                    == "launches_by_path" for t in n.targets)]
+    sharded = [seg for seg in by_path if "sharded=" in seg and 'sharded["launches"]' in seg]
+    # flash (its three kernels), RMSNorm and the SSD scan (one loop), moe_gmm, quant
+    assert len(sharded) == 4, by_path
+    loop = [seg for seg in by_path if "serve=serve" in seg]
+    assert loop and all('sharded=sharded["launches"][name]' in seg for seg in loop)
+    for name in ("moe_gmm", "quantize_int8"):
+        assert any(f'sharded["launches"]["{name}"]' in seg for seg in sharded), name

@@ -204,6 +204,49 @@ def _function_source(path: Path, name: str) -> str:
     return ast.get_source_segment(text, node)
 
 
+# ``distributed/sharding.py`` and ``distributed/pipeline.py`` are ports:
+# these functions in them are copies; function -> [(original, copy)] edits
+SHARDING_COPIES = ["make_rules", "full_dp_rules", "_resolve", "make_pspec"]
+SHARDING_EDITS = {
+    # a DeviceMesh names its axes ``mesh_dim_names``; ``axis_names`` reads both kinds
+    "_resolve": [("t in mesh.axis_names", "t in axis_names(mesh)")],
+}
+
+
+@pytest.mark.parametrize("name", SHARDING_COPIES)
+def test_copied_sharding_function_matches_original(name):
+    want = re.sub(r"\brepro\b", "repro_torch",
+                  _function_source(SRC / "repro/distributed/sharding.py", name))
+    for old, new in SHARDING_EDITS.get(name, []):
+        assert want.count(old) == 1, f"{name}: listed edit no longer applies: {old!r}"
+        want = want.replace(old, new)
+    assert _function_source(SRC / "repro_torch/distributed/sharding.py", name) == want
+
+
+def _assignment_source(path: Path, name: str) -> str:
+    text = path.read_text()
+    (node,) = [n for n in ast.parse(text).body if isinstance(n, ast.AnnAssign)
+               and getattr(n.target, "id", None) == name]
+    return ast.get_source_segment(text, node)
+
+
+def test_copied_base_rules_match_original():
+    """``BASE_RULES`` with its comments, line for line."""
+    orig = (SRC / "repro/distributed/sharding.py").read_text()
+    port = (SRC / "repro_torch/distributed/sharding.py").read_text()
+    start, end = "BASE_RULES: Rules = {", "\n}\n"
+    block = lambda t: t[t.index(start):t.index(end, t.index(start))]  # noqa: E731
+    assert block(port) == block(orig)
+    assert _assignment_source(SRC / "repro_torch/distributed/sharding.py", "BASE_RULES") == \
+        _assignment_source(SRC / "repro/distributed/sharding.py", "BASE_RULES")
+
+
+def test_copied_pipeline_bubble_fraction_matches_original():
+    assert _function_source(SRC / "repro_torch/distributed/pipeline.py",
+                            "pipeline_bubble_fraction") == _function_source(
+        SRC / "repro/distributed/pipeline.py", "pipeline_bubble_fraction")
+
+
 @pytest.mark.parametrize("name", PROFILER_COPIES)
 def test_copied_profiler_function_matches_original(name):
     orig = _function_source(SRC / "repro/core/profiler.py", name)

@@ -200,8 +200,10 @@ def test_tree_helpers_release_their_leaves_without_the_collector():
 def test_unported_paths_raise():
     """MoE and SSM training run through the kernel path (its plain versions
     on the CPU; ``tests/test_torch_train_kernels.py`` holds them to the
-    reference); what stays unported raises: ``batch_chunks > 1`` (ROADMAP
-    A8b) and a remat policy the reference does not have."""
+    reference); ``batch_chunks > 1`` runs (the dense model's rows are
+    independent, so two chunks give the one-chunk hidden states) and raises
+    only on a batch it does not divide; a remat policy the reference does
+    not have raises."""
     _, tcfg = _cfgs()
     tparams = lm.init_model(tcfg, 0, device="cpu")
     tokens = torch.zeros(2, 64, dtype=torch.int32)
@@ -213,8 +215,11 @@ def test_unported_paths_raise():
         loss, _ = lm.lm_loss(params, cfg, {"tokens": tokens[:, :16], "labels": tokens[:, :16]})
         grads = torch.autograd.grad(loss, leaves)
         assert torch.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads), arch
-    with pytest.raises(NotImplementedError, match="batch_chunks"):
-        lm.forward_hidden(tparams, dataclasses.replace(tcfg, batch_chunks=2), tokens)
+    one, _, _ = lm.forward_hidden(tparams, tcfg, tokens)
+    two, _, _ = lm.forward_hidden(tparams, dataclasses.replace(tcfg, batch_chunks=2), tokens)
+    torch.testing.assert_close(two, one, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="batch_chunks=3 does not divide"):
+        lm.forward_hidden(tparams, dataclasses.replace(tcfg, batch_chunks=3), tokens)
     with pytest.raises(NotImplementedError, match="remat policy 'offload'"):
         lm.forward_hidden(tparams, dataclasses.replace(tcfg, remat="offload"), tokens)
     # without CUDA the helpers refuse the default device instead of the CPU

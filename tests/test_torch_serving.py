@@ -197,7 +197,7 @@ def test_generate_matches_reference_steps(arch):
         tok = np.where(done, eos, np.asarray(jnp.argmax(logits, -1), np.int32))
         want.append(tok)
         done = done | (tok == eos)
-    out, steps = make_generate(tcfg, max_new=max_new, eos_id=eos)(
+    out, steps = make_generate(tcfg, None, None, max_new=max_new, eos_id=eos)(
         tparams, torch.from_numpy(prompts))
     assert steps == max_new and out.dtype == torch.int32
     np.testing.assert_array_equal(out.numpy(), np.stack(want, axis=1))

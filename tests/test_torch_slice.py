@@ -106,19 +106,42 @@ def test_mixed_placement_matches_host():
     np.testing.assert_allclose(list(got), host, rtol=1e-5, atol=1e-4)
 
 
-def test_later_slices_raise_not_implemented():
-    """What stays unported names its ROADMAP item: in-block batch chunking
-    belongs to sharding, A8b."""
+@pytest.mark.parametrize("remat", ["block", "save_dispatch", "none"])
+def test_batch_chunks_match_reference(remat):
+    """``batch_chunks=2`` (in-block batch chunking, the aux losses summed
+    over chunks) on the reduced deepseek-moe-16b: loss and gradients against
+    the reference's ``batch_chunks=2`` under each remat policy."""
     import dataclasses
 
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget_config
+    from repro.model import lm as jlm
     from repro_torch.configs import get_config
     from repro_torch.model import lm
+    from repro_torch.model.convert import params_from_numpy
+    from repro_torch.pytree import tree_paths
 
-    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), batch_chunks=2)
-    params = lm.init_model(cfg, 0, device="cpu")
-    tokens = torch.zeros(2, 16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        lm.lm_loss(params, cfg, {"tokens": tokens, "labels": tokens})
+    kw = dict(dtype="float32", param_dtype="float32", batch_chunks=2, remat=remat)
+    jcfg = dataclasses.replace(jget_config("deepseek-moe-16b").reduced(), use_pallas="off", **kw)
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(), **kw)
+    jparams = jlm.init_model(jcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(lambda a: np.asarray(a, np.float32), jparams), cfg,
+                               device="cpu")
+    toks = np.random.default_rng(4).integers(3, cfg.vocab_size, (4, 17)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    (jloss, jm), jgrads = jax.value_and_grad(lambda p: jlm.lm_loss(p, jcfg, {
+        k: jnp.asarray(v) for k, v in batch.items()}), has_aux=True)(jparams)
+    keys, leaves = zip(*tree_paths(params))
+    loss, m = lm.lm_loss(params, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(leaves))
+    np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(m["moe_balance"]), float(jm["moe_balance"]), rtol=1e-5)
+    jflat = {"/".join(str(p.key) for p in path): np.asarray(g) for path, g in
+             jax.tree_util.tree_flatten_with_path(jgrads)[0]}
+    for k, g in zip(keys, grads):
+        np.testing.assert_allclose(g.numpy(), jflat[k], atol=2e-4, rtol=2e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("entry", ["serve", "profile", "explore"])
