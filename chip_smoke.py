@@ -214,6 +214,30 @@ Phases, one line or more each:
              profiled window of three steps (idle share, top kernels); and
              the new backwards' pieces a layer at the path's shapes (the SSD
              backward, the transposed weight copy, dx and dW).
+15. sharded — the sharded path on a (1, 1) mesh over a one-rank NCCL
+             group: smollm-135m's training steps, mamba2-130m's prefill and
+             deepseek-moe-16b's loss and backward at 2 of 28 layers with
+             DTensor parameters under ``shard_ctx``, bitwise the same runs
+             unsharded, and ``all_reduce_int8`` over the data axis.
+16. dryrun  — the dry-run (``repro_torch.launch.dryrun``).  Its unsharded
+             prediction on meta tensors against real steps on the card at
+             published widths and depth: smollm-135m training at phase 5's
+             cell (8 x 2048, block remat, AdamW) and mamba2-130m's prefill
+             (8 x 2048).  With ``use_kernels="off"`` (the path the trace
+             runs): argument bytes exactly the real inputs', the predicted
+             peak within 15% of ``max_memory_allocated`` over a step (reset
+             before it), the predicted FLOPs within 1% of
+             ``FlopCounterMode`` on the step (the ops that differ printed
+             otherwise); with ``"cuda"``: the kernels launched, the peak.
+             For both paths the device ms of a step (``profile_window``) and
+             ``step_mfu``, the model FLOPs over those seconds at the H100
+             SXM's dense bf16 peak (989 TFLOP/s).  Meanwhile, one process a
+             cell on the host's CPU: ``python -m repro_torch.launch.dryrun``
+             over smollm-135m x {train_4k, prefill_32k, decode_32k} and
+             mamba2-130m train_4k at 16x16 and deepseek-moe-16b decode_32k at
+             2x16x16 on a ``fake`` process group of 256 / 512 ranks, every
+             cell ``ok``: FLOPs, collective bytes (ICI / DCN), argument and
+             temp GiB per device and trace seconds printed.
 
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels (each with its design); the last line is
@@ -3302,6 +3326,218 @@ def phase_sharded() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dry-run, held to real steps on the card, and the production
+# cells traced on a fake process group
+# ---------------------------------------------------------------------------
+
+# (name, arch, kind, global batch, sequence): phase 5's training cell and
+# phase 15's prefill, at published widths and depth
+DRYRUN_CARD = (("train", "smollm-135m", "train", 8, 2048),
+               ("prefill", "mamba2-130m", "prefill", 8, 2048))
+DRYRUN_LAUNCHES = {"smollm-135m": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm"),
+                   "mamba2-130m": ("ssd_scan", "rmsnorm")}
+# (arch, shape, multi-pod) traced by ``python -m repro_torch.launch.dryrun``
+DRYRUN_CELLS = (("smollm-135m", "train_4k", False), ("smollm-135m", "prefill_32k", False),
+                ("smollm-135m", "decode_32k", False), ("mamba2-130m", "train_4k", False),
+                ("deepseek-moe-16b", "decode_32k", True))
+DRYRUN_CELL_SECONDS = 900  # each cell's subprocess, all of them at once
+PEAK_TOL = 0.15  # predicted peak memory against max_memory_allocated
+FLOP_GAP_TOL = 0.01  # predicted FLOPs against FlopCounterMode on the real "off" step
+BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores, NVIDIA's datasheet
+
+
+def start_dryrun_cells(out_dir: str) -> dict:
+    """One ``python -m repro_torch.launch.dryrun`` process per production
+    cell, all started at once on the host's CPU (its tensors are meta
+    tensors: nothing runs on the card)."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(SRC)] + [
+                   p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = {}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--out", out_dir]
+        cmd += ["--multi-pod"] if multi_pod else []
+        tag = f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
+        procs[tag] = (subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), time.perf_counter())
+    return procs
+
+
+def finish_dryrun_cells(procs: dict, out_dir: str) -> dict:
+    """Wait for every cell (killing any past ``DRYRUN_CELL_SECONDS``), print
+    one line a cell and fail the run on any cell that did not end ``ok``."""
+    rows = {}
+    t_start = min(t0 for _, t0 in procs.values())
+    try:
+        for tag, (p, t0) in procs.items():
+            try:
+                log = p.communicate(timeout=max(1.0, DRYRUN_CELL_SECONDS - (time.perf_counter() - t0)))[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                log = p.communicate()[0]
+            path = Path(out_dir) / f"{tag}.json"
+            res = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+            rows[tag] = dict(res, rc=p.returncode)
+            if res.get("status") != "ok":
+                print(f"  {tag}: {res.get('status')} rc {p.returncode}: "
+                      f"{res.get('error')}\n{res.get('traceback', '')[-2000:]}\n{log[-2000:]}",
+                      flush=True)
+                check(False, f"dryrun: production cell {tag} did not end ok")
+                continue
+            a, mem = res["analyzed"], res["memory_analysis"]
+            print(f"  {tag}: flops/dev {a['flops']:.6e}, collective bytes/dev "
+                  f"{a['collective_bytes']:.6e} (ICI {a['ici_bytes']:.6e}, DCN "
+                  f"{a['dcn_bytes']:.6e}), arguments {mem['argument_size_in_bytes'] / 2**30:.4f} "
+                  f"GiB/dev, temp {mem['temp_size_in_bytes'] / 2**30:.4f} GiB/dev, trace "
+                  f"{res['t_trace_s']} s", flush=True)
+        print(f"  every cell done {time.perf_counter() - t_start:.1f} s after the first "
+              f"started", flush=True)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rows
+
+
+def real_args(cfg, kind: str, B: int, S: int, specs) -> tuple:
+    """The cell's arguments as real tensors on the card, seeded: the
+    parameters of ``init_model`` (requiring grad), AdamW's state and int32
+    tokens (and labels), each of the dry-run's spec's shape and dtype."""
+    from repro_torch.model import lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.pytree import tree_leaves
+
+    params = lm.init_model(cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tok = lambda: torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,  # noqa: E731
+                                device="cuda", generator=g)
+    if kind == "train":
+        args = (params, init_opt_state(params, OptConfig()), {"tokens": tok(), "labels": tok()})
+    else:
+        args = (params, {"tokens": tok()})
+    for a, s in zip(tree_leaves(args), tree_leaves(specs)):
+        assert a.shape == s.shape and a.dtype == s.dtype, (a.shape, s.shape, a.dtype, s.dtype)
+    return args
+
+
+def step_peak(step, args) -> dict:
+    """One call of ``step`` after a warm-up call: the card's peak allocated
+    bytes over it (``max_memory_allocated``, reset just before) and the bytes
+    allocated when it starts."""
+    import gc
+
+    step(*args)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return dict(start=start, peak=peak)
+
+
+def phase_dryrun() -> dict:
+    """The dry-run (``repro_torch.launch.dryrun``): its unsharded prediction
+    against real steps on the card, and the production cells."""
+    import dataclasses
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.hlo_analysis import tensor_bytes
+    from repro_torch.launch.steps import cell_specs
+
+    print("phase 16: dry-run: predictions against the card, production cells", flush=True)
+    out = {"card": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as cells_dir:
+        procs = start_dryrun_cells(cells_dir)  # on the host's CPU while the card works
+        for name, arch, kind, B, S in DRYRUN_CARD:
+            cfg = get_config(arch)
+            off = dataclasses.replace(cfg, use_kernels="off")
+            cell = ShapeCell(f"card_{name}", S, B, kind)
+            pred = analyze_cell(cfg, cell)
+            mem = pred["memory_analysis"]
+            pred_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            step_off, specs, _ = cell_specs(off, cell)
+            args = real_args(cfg, kind, B, S, specs)
+            arg_bytes = tensor_bytes(args)
+            row = dict(arch=arch, kind=kind, batch=B, seq_len=S, pred_flops=pred["analyzed"]["flops"],
+                       pred_argument_bytes=mem["argument_size_in_bytes"], real_argument_bytes=arg_bytes,
+                       pred_peak_bytes=pred_peak, model_flops_global=pred["model_flops_global"],
+                       trace_s=pred["t_trace_s"])
+            check(arg_bytes == mem["argument_size_in_bytes"],
+                  f"dryrun {name}: argument bytes {mem['argument_size_in_bytes']} predicted, "
+                  f"{arg_bytes} real")
+            with FlopCounterMode(display=False) as fc:
+                step_off(*args)
+            torch.cuda.synchronize()
+            row["real_off_flops"] = float(fc.get_total_flops())
+            gap = abs(row["real_off_flops"] - row["pred_flops"]) / row["pred_flops"]
+            row["flop_gap"] = gap
+            if gap > FLOP_GAP_TOL:  # print the ops that differ: each needs an explanation
+                real_by = {str(k): float(v) for k, v in fc.get_flop_counts()["Global"].items()}
+                diff = {k: (pred["flops_by_op"].get(k, 0.0), real_by.get(k, 0.0))
+                        for k in set(real_by) | set(pred["flops_by_op"])
+                        if pred["flops_by_op"].get(k, 0.0) != real_by.get(k, 0.0)}
+                print(f"  {name}: FLOPs by op, predicted against counted: {diff}", flush=True)
+            check(gap <= FLOP_GAP_TOL, f"dryrun {name}: FLOPs {row['pred_flops']:.6e} predicted, "
+                  f"{row['real_off_flops']:.6e} counted on the card's 'off' step (gap {gap:.4%})")
+            for path, cfg_p in (("off", off), ("cuda", cfg)):
+                step = cell_specs(cfg_p, cell)[0]
+                zero_lm_counts()
+                mem_row = step_peak(step, args)
+                launches = {k: lm_counts()[k] for k in DRYRUN_LAUNCHES[arch]}
+                prof = profile_window(lambda: step(*args), 3)
+                check_window(prof, f"dryrun {name} {path}: profiled window")
+                busy_s = prof["device_busy_ms_per_call"] / 1e3
+                held = mem_row["start"] - arg_bytes  # bytes on the card that are no argument
+                measured = mem_row["peak"] - held
+                row[path] = dict(
+                    peak_bytes=mem_row["peak"], start_bytes=mem_row["start"], held_bytes=held,
+                    peak_less_held_bytes=measured, launches=launches,
+                    device_busy_ms=prof["device_busy_ms_per_call"], idle_share=prof["idle_share"],
+                    step_mfu=pred["model_flops_global"] / (busy_s * BF16_PEAK_FLOPS))
+                if path == "off":
+                    rel = abs(pred_peak - measured) / measured
+                    row["off"]["peak_rel_err"] = rel
+                    check(rel <= PEAK_TOL, f"dryrun {name}: predicted peak {pred_peak} B against "
+                          f"{measured} B measured on the 'off' step ({rel:.2%})")
+                else:
+                    for k, n in launches.items():
+                        check(n > 0, f"dryrun {name}: {k} was never launched on the kernel path")
+                print(f"  {name} ({arch}, {kind} {B} x {S}) {path}: peak "
+                      f"{mem_row['peak'] / 1e9:.6f} GB (start {mem_row['start'] / 1e9:.6f}, of it "
+                      f"{held / 1e9:.6f} no argument), device busy "
+                      f"{prof['device_busy_ms_per_call']:.3f} ms a step, idle "
+                      f"{prof['idle_share']:.3f}, step_mfu {row[path]['step_mfu']:.4f} "
+                      f"(model FLOPs {pred['model_flops_global']:.6e} over busy seconds x "
+                      f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s, the H100 SXM's dense bf16 "
+                      f"peak); launches "
+                      f"{launches}", flush=True)
+            print(f"  {name}: predicted FLOPs {row['pred_flops']:.6e}, FlopCounterMode on the "
+                  f"card's 'off' step {row['real_off_flops']:.6e} (gap {gap:.4%}); arguments "
+                  f"{arg_bytes} B predicted and real; predicted peak {pred_peak / 1e9:.6f} GB "
+                  f"against {row['off']['peak_less_held_bytes'] / 1e9:.6f} GB on the 'off' step "
+                  f"({row['off']['peak_rel_err']:.2%}); trace {pred['t_trace_s']} s", flush=True)
+            out["card"][name] = row
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["cells"] = finish_dryrun_cells(procs, cells_dir)
+    return out
+
+
 def build_all(programs) -> None:
     """Build every kernel library at once, one nvcc per source in parallel:
     the five sources of ``csrc/`` and the stream kernel generated for each of
@@ -3393,6 +3629,8 @@ def main() -> int:
     train_kernels = timed(phase_train_kernels)
     torch.cuda.empty_cache()
     sharded = timed(phase_sharded)
+    torch.cuda.empty_cache()
+    timed(phase_dryrun)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)

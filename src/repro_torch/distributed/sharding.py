@@ -412,10 +412,17 @@ def split_dim(t: torch.Tensor, dim: int, sizes: Sequence[int]) -> torch.Tensor:
 
 
 def merge_dims(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    """``t`` with dims ``dim ... dim + n - 1`` merged into one.  A DTensor's
-    gradient is brought back to the merged result's placements before the
-    backward splits it again (a gradient split along the merged dim over
-    mesh dims that do not divide its first part could not be viewed)."""
+    """``t`` with dims ``dim ... dim + n - 1`` merged into one.  A DTensor
+    split along a merged dim after the first is gathered along it first (its
+    shards are no block of the merged dim, and some versions of DTensor
+    refuse the view).  A DTensor's gradient is brought back to the merged
+    result's placements before the backward splits it again (a gradient
+    split along the merged dim over mesh dims that do not divide its first
+    part could not be viewed)."""
+    if isinstance(t, DTensor):
+        inner = range(dim + 1, dim + n)
+        t = redistribute(t, [Replicate() if isinstance(p, Shard) and p.dim in inner else p
+                             for p in t.placements])
     out = t.reshape(*t.shape[:dim], -1, *t.shape[dim + n:])
     if isinstance(out, DTensor):
         out = out.redistribute(out.device_mesh, out.placements)
@@ -481,6 +488,32 @@ def local_call(fn: Callable, args: Sequence[Any], in_placements: Sequence,
         in_grad_placements=tuple(grad_placements) if grad_placements is not None else None,
         device_mesh=mesh, redistribute_inputs=True,
     )(*args)
+
+
+def contract(fn: Callable, x: DTensor, w: DTensor) -> DTensor:
+    """``fn(x, w)``, a product over ``x``'s last dim and ``w``'s first (``w``
+    2-D), run on each rank's shards: DTensor's own rule would flatten ``x``'s
+    leading dims into a view, which some versions refuse where a dim after
+    the first is split (a split sequence).  On each mesh dim: where ``x``
+    splits its last dim, ``w`` is split on its first the same way and the
+    result is a partial sum (row parallel); where ``x`` splits another dim,
+    ``w`` is whole there; where ``x`` is whole, ``w`` keeps a split of its
+    second dim (column parallel); anything else is gathered.  An input whole
+    on a mesh dim along which the other is split gets a partial gradient
+    there."""
+    last = x.dim() - 1
+    px, pw, out = [], [], []
+    for p, q in zip(x.placements, w.placements):
+        if isinstance(p, Shard) and p.dim == last:
+            px.append(p), pw.append(Shard(0)), out.append(Partial())
+        elif isinstance(p, Shard):
+            px.append(p), pw.append(Replicate()), out.append(p)
+        elif isinstance(q, Shard) and q.dim == 1:
+            px.append(Replicate()), pw.append(q), out.append(Shard(last))
+        else:
+            px.append(Replicate()), pw.append(Replicate()), out.append(Replicate())
+    return local_call(fn, (x, w), (px, pw), tuple(out),
+                      grad_placements=(partial_where_split(px, pw), partial_where_split(pw, px)))
 
 
 def is_sharded(*xs) -> bool:

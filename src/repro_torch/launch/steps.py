@@ -14,13 +14,15 @@ optimizer state placed as DTensors; ``batch_specs``, ``params_specs`` and
 reference's ``ShapeDtypeStruct``s) and logical axes, ``specs_to_pspecs``
 their PartitionSpecs, as the reference's step placement reads them.  A
 plain batch handed to a train step inside a context is placed by its
-``batch_specs`` axes.  (``cache_specs``, ``cell_specs`` and
-``default_accum_steps`` wait for the dry-run, ROADMAP A8c.)
+``batch_specs`` axes.  ``cache_specs`` gives the decode cache's,
+``cell_specs(cfg, cell)`` the step of a shape cell with every argument's
+form and axes (the dry-run traces it), and ``default_accum_steps`` the
+reference's microbatching policy.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +41,20 @@ METRIC_KEYS = ("loss", "ce", "moe_balance", "moe_zloss", "tokens")
 
 BATCH_LOGICAL = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
                  "embeds": ("batch", "seq", None)}
+
+
+def default_accum_steps(cfg: ModelConfig, cell: ShapeCell) -> int:
+    """Microbatching policy: keep the per-device microbatch around 2 rows."""
+    if cell.kind != "train":
+        return 1
+    if cfg.accum_steps:
+        return cfg.accum_steps
+    if cfg.batch_chunks > 1:  # weight-stationary in-block chunking instead
+        return 1
+    n = max(1, cell.global_batch // 32)
+    while cell.global_batch % n:
+        n -= 1
+    return min(n, 8)
 
 
 def _as_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -75,7 +91,9 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, accum_steps: int = 1):
     def loss_and_grads(params, batch):
         leaves, treedef = tree_flatten(params)
         loss, metrics = lm.lm_loss(params, cfg, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (the token embedding of a model fed
+        # embeddings) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, tree_unflatten(treedef, list(grads))
 
@@ -145,6 +163,11 @@ def batch_specs(cfg: ModelConfig, cell: ShapeCell) -> Tuple[Dict, Dict]:
     return specs, logical
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Tuple[PyTree, PyTree]:
+    """(meta tensor tree, logical-axes tree) of ``lm.init_cache``."""
+    return lm.init_cache(cfg, batch, max_len, device="meta"), lm.cache_logical(cfg)
+
+
 def params_specs(cfg: ModelConfig) -> Tuple[PyTree, PyTree]:
     defs = lm.model_defs(cfg)
     return lm.abstract_model(cfg), defs_logical(defs)
@@ -161,6 +184,33 @@ def opt_specs(cfg: ModelConfig, opt: OptConfig) -> Tuple[PyTree, PyTree]:
     if opt.keep_master:
         logical["master"] = plog
     return abstract, logical
+
+
+def cell_specs(cfg: ModelConfig, cell: ShapeCell, opt: Optional[OptConfig] = None):
+    """All (args, logical) for the step a cell runs.
+
+    Returns (step_fn, args_specs_tuple, args_logical_tuple).  A train
+    cell's parameters require grad, as the trainer's do."""
+    opt = opt or OptConfig()
+    p_spec, p_log = params_specs(cfg)
+    if cell.kind == "train":
+        p_spec = tree_map(lambda p: p.requires_grad_(p.is_floating_point()), p_spec)
+        b_spec, b_log = batch_specs(cfg, cell)
+        o_spec, o_log = opt_specs(cfg, opt)
+        step = make_train_step(cfg, opt, default_accum_steps(cfg, cell))
+        return step, (p_spec, o_spec, b_spec), (p_log, o_log, b_log)
+    if cell.kind == "prefill":
+        b_spec, b_log = batch_specs(cfg, cell)
+        return make_prefill_step(cfg), (p_spec, b_spec), (p_log, b_log)
+    # decode: one new token against a cache of seq_len
+    c_spec, c_log = cache_specs(cfg, cell.global_batch, cell.seq_len)
+    tok = torch.empty((cell.global_batch,), dtype=torch.int32, device="meta")
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    return (
+        make_decode_step(cfg),
+        (p_spec, c_spec, tok, pos),
+        (p_log, c_log, ("batch",), ()),
+    )
 
 
 def specs_to_pspecs(specs: PyTree, logical: PyTree, mesh, rules) -> PyTree:

@@ -194,7 +194,12 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     result type, which is the reference's f32 dot followed by the cast.
     Under ``REPRO_BF16_DOTS=1`` the reference's dot emits ``x.dtype`` (mixed
     types promote to float32 first): the same values, so the switch takes no
-    branch here."""
+    branch here.  On DTensors it runs on each rank's shards
+    (``sharding.contract``)."""
+    from repro_torch.distributed import sharding as sh
+
+    if sh.is_sharded(x, w):
+        return sh.contract(dense, x, w)
     if x.dtype != w.dtype:
         return torch.matmul(x.float(), w.float()).to(x.dtype)
     return torch.matmul(x, w)

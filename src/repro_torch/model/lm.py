@@ -311,29 +311,64 @@ def head_logits(h: torch.Tensor, w: torch.Tensor, kernels: str) -> torch.Tensor:
     has no CPU kernel), float32 and ``"off"`` cast to float32 first, which
     computes the same product.
 
-    On DTensors it runs on each rank's shards: h's rows and w's vocabulary
-    columns may stay split (each gradient a partial sum over the other's
-    split), the model dim is gathered."""
+    On DTensors it runs on each rank's shards (``sharding.contract``): h's
+    rows and w's vocabulary columns may stay split, each gradient a partial
+    sum over the other's split."""
     if sh.is_sharded(h, w):
-        ph = sh.keep_shards(h, range(h.dim() - 1))
-        pw = tuple(p if isinstance(p, sh.Shard) and p.dim == 1 and isinstance(q, sh.Replicate)
-                   else sh.Replicate() for p, q in zip(sh.keep_shards(w, (1,)), ph))
-        out = tuple(sh.Shard(h.dim() - 1) if isinstance(b, sh.Shard) else a
-                    for a, b in zip(ph, pw))
-        return sh.local_call(lambda h, w: head_logits(h, w, kernels), (h, w), (ph, pw), out,
-                             grad_placements=(sh.partial_where_split(ph, pw),
-                                              sh.partial_where_split(pw, ph)))
+        return sh.contract(lambda h, w: head_logits(h, w, kernels), h, w)
     if h.is_cuda and h.dtype == w.dtype and h.dtype in (torch.bfloat16, torch.float16) \
             and kernels != "off":
         return _HeadF32.apply(h.reshape(-1, h.shape[-1]), w).reshape(*h.shape[:-1], -1)
     return torch.matmul(h.float(), w.float())
 
 
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim, its forward and backward
+    written as the reductions and elementwise ops ATen's own are made of (the
+    same values, bit for bit): on a DTensor split along that dim they keep
+    the split, where DTensor's rule for ``logsumexp`` gathers the operand."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = torch.amax(x, dim=-1, keepdim=True)
+        m = m.masked_fill(m.abs() == float("inf"), 0)
+        lse = torch.log(torch.sum(torch.exp(x - m), dim=-1)) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None])
+
+
+def _label_logit(logits, idx, vocab):
+    """``logits[..., idx]`` as a masked sum over the last dim, whose global
+    indices are ``vocab`` (the same value and gradient as a gather)."""
+    return torch.sum(torch.where(vocab == idx[..., None], logits, 0.0), dim=-1)
+
+
 def _ce_chunk(h, labels, head_w, vmask, kernels):
     """(sum of token CE, count of valid tokens) over one sequence chunk."""
     logits = constrain(head_logits(h, head_w, kernels) + vmask, ("batch", None, None, "vocab"))
-    lse = torch.logsumexp(logits, dim=-1)
-    lab = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    idx = labels.clamp_min(0)
+    if sh.is_sharded(logits):
+        # reductions over the vocabulary, which stays split (the same values
+        # and gradients): DTensor's logsumexp gathers the logits, and a
+        # gather's backward makes a zeros tensor of their global shape on
+        # every rank
+        lse = _LogSumExp.apply(logits)
+        last = logits.dim() - 1
+        pl = logits.placements
+        pi = sh.mapped(pl, {d: d for d in range(last)})
+        out = tuple(sh.Partial() if isinstance(p, sh.Shard) and p.dim == last else q
+                    for p, q in zip(pl, pi))
+        vocab = replicate(torch.arange(logits.shape[-1], device=idx.to_local().device))
+        lab = sh.local_call(_label_logit, (logits, idx, vocab),
+                            (pl, pi, sh.mapped(pl, {last: 0})), out)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, idx[..., None])[..., 0]
     valid = (labels >= 0).float()
     return torch.sum((lse - lab) * valid), torch.sum(valid)
 

@@ -110,7 +110,11 @@ def _group_dispatch(x: torch.Tensor, probs: torch.Tensor, k: int, capacity: int)
     e_sorted = torch.gather(e_flat, 1, order)
     t_sorted = order // k
     g_base = torch.arange(G, device=dev)[:, None]
-    counts = torch.bincount((e_flat + g_base * E).reshape(-1), minlength=G * E).reshape(G, E)
+    # (group, expert) counts as a scatter of ones: a static shape, which
+    # meta tensors and DTensor shards take (``bincount``'s depends on the data)
+    counts = torch.zeros(G * E, dtype=torch.long, device=dev).scatter_add_(
+        0, (e_flat + g_base * E).reshape(-1), torch.ones(G * M, dtype=torch.long, device=dev)
+    ).reshape(G, E)
     offsets = torch.cumsum(counts, dim=-1) - counts
     slot = torch.arange(M, device=dev) - torch.gather(offsets, 1, e_sorted)
     kept = slot < C

@@ -64,7 +64,15 @@ def ssm_defs(cfg) -> Dict[str, ParamDef]:
 
 
 def _causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv.  x: (B, S, C); kernel: (W, C)."""
+    """Depthwise causal conv.  x: (B, S, C); kernel: (W, C).  On DTensors it
+    runs on each rank's shards, the batch and channels kept split and the
+    sequence whole (DTensor's rule for the broadcast product fails in some
+    versions); the kernel's gradient is a partial sum over a batch split."""
+    if sh.is_sharded(x, kernel):
+        px = sh.keep_shards(x, (0, 2))
+        pk = sh.mapped(px, {2: 1})
+        return sh.local_call(_causal_conv, (x, kernel), (px, pk), px,
+                             grad_placements=(px, sh.partial_where_split(pk, px)))
     W = kernel.shape[0]
     S = x.shape[1]
     xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
@@ -180,6 +188,15 @@ def ssd_step(
     C_: torch.Tensor,  # (B, ds)
     state: torch.Tensor,  # (B, nh, hd, ds) f32
 ):
+    """One decode step of the SSD recurrence; on DTensors on each rank's
+    shards, the batch, heads and head dims kept split."""
+    if sh.is_sharded(x, state):
+        px = sh.keep_shards(x, (0, 1, 2))
+        pb = sh.mapped(px, {0: 0})
+        ps = sh.mapped(px, {0: 0, 1: 1, 2: 2})
+        return sh.local_call(ssd_step, (x, dt, A, B_, C_, state),
+                             (px, sh.mapped(px, {0: 0, 1: 1}), sh.mapped(px, {1: 0}), pb, pb, ps),
+                             (px, ps))
     dt = dt.float()
     da = torch.exp(dt * A)  # (B, nh)
     upd = torch.einsum("bh,bn,bhp->bhpn", dt, B_.float(), x.float())
@@ -264,7 +281,7 @@ def ssm_mixer(
         xc_t, conv_x = _conv_step(xp, cache["conv_x"], params["conv_x"])
         bc_t, conv_b = _conv_step(bp, cache["conv_b"], params["conv_b"])
         cc_t, conv_c = _conv_step(cp, cache["conv_c"], params["conv_c"])
-        xh = silu(xc_t)[:, 0].reshape(B, nh, hd)
+        xh = sh.split_dim(silu(xc_t)[:, 0], 1, (nh, hd))
         yt, state = ssd_step(
             xh, dt[:, 0], A, silu(bc_t)[:, 0], silu(cc_t)[:, 0], cache["state"]
         )

@@ -357,6 +357,49 @@ def case_pipeline(rank, world, args, res):
     res["lm_grad_ref"] = torch.autograd.grad(torch.sum(ref * ref), w)[0].numpy()
 
 
+def case_dryrun(rank, world, args, res):
+    """Each run and mesh: the reduced training step of a shape cell on real
+    tensors placed as the dry-run places its meta ones, under
+    ``StepCounter``: this rank's FLOPs and collectives per kind."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.hlo_analysis import COLLECTIVES, StepCounter
+    from repro_torch.launch.steps import cell_specs, specs_to_pspecs
+    from repro_torch.model import lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.pytree import tree_flatten, tree_unflatten
+
+    cell = ShapeCell(*args["cell"])
+    for shape in args["meshes"]:
+        mesh = _mesh(shape)
+        for arch in args["archs"]:
+            cfg = dataclasses.replace(get_config(arch).reduced(), use_kernels="off")
+            rules = sh.make_rules(cfg, mesh)
+            step, specs, logical = cell_specs(cfg, cell)
+            params = sh.place(lm.init_model(cfg, 0, device="cpu"),
+                              sh.defs_shardings(lm.model_defs(cfg), mesh, rules))
+            opt = init_opt_state(params, OptConfig())
+            rng = np.random.default_rng(0)
+            leaves, treedef = tree_flatten(specs[2])
+            pspecs = tree_flatten(specs_to_pspecs(specs[2], logical[2], mesh, rules),
+                                  is_leaf=lambda x: isinstance(x, tuple))[0]
+            batch = tree_unflatten(treedef, [sh.distribute_tensor(
+                torch.from_numpy(rng.integers(0, cfg.vocab_size, t.shape).astype(np.int32)),
+                mesh, sh.to_placements(p, mesh)) for t, p in zip(leaves, pspecs)])
+            counter = StepCounter()
+            with counter, sh.shard_ctx(mesh, rules):
+                step(params, opt, batch)
+            tag = f"{arch}/{shape[0]}x{shape[1]}"
+            st = counter.stats
+            res[f"{tag}/flops"] = np.array(st.flops)
+            for kind in COLLECTIVES:
+                res[f"{tag}/{kind}/count"] = np.array(st.coll[kind]["count"])
+                res[f"{tag}/{kind}/bytes"] = np.array(st.coll[kind]["bytes"])
+
+
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
 
 
