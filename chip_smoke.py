@@ -238,6 +238,26 @@ Phases, one line or more each:
              2x16x16 on a ``fake`` process group of 256 / 512 ranks, every
              cell ``ok``: FLOPs, collective bytes (ICI / DCN), argument and
              temp GiB per device and trace seconds printed.
+17. examples — the six example twins (``examples/*_torch.py``), each
+             through its ``main`` on the card, each passing its own checks
+             and launching each kernel of its path (counts set to 0 just
+             before a twin, or each of its runs, and read just after):
+             heterogeneous_stream (Bitonic8 and IDCT8, n 1000, block 4096;
+             the stream kernel), partition_explore (TopFilter n 20000:
+             profile, explore, the best XCF run on the card, bitwise the
+             host run; TopFilter has no fused region, so no stream kernel),
+             serve_decode ``--full`` (smollm-135m, mamba2-130m and
+             deepseek-moe-16b at published widths and depth, B 4, prompt
+             16, 16 new; RMSNorm on each, the SSD scan, ``moe_gmm``),
+             train_smollm ``--full --steps 80`` (B 16 x S 128, accum 2,
+             checkpoints at 25, 50, 75, the failure injected at 60; flash
+             and RMSNorm), quickstart (300 steps under ``shard_ctx`` on a
+             one-rank NCCL mesh, then generation) and pipeline_lm as a
+             subprocess (4 gloo ranks sharing the card, the hops staged
+             through the host; each rank prints its launches of one
+             pipelined forward and of one gradient pass; forward and
+             gradient within 1e-2 of the sequential ones); each twin's
+             seconds and key numbers, and the whole run's seconds.
 
 The line before the last is the card's name and power limit, the one before
 that a JSON record of the kernels (each with its design); the last line is
@@ -252,6 +272,7 @@ import contextlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -659,6 +680,12 @@ FLASH_SHAPES = {
     "hd16": (2, 192, 4, 2, 16, torch.bfloat16, True),
     "hd32": (2, 192, 4, 2, 32, torch.bfloat16, True),
     "full": (2, 1024, 8, 2, 64, torch.bfloat16, False),
+    # phase 17's twins: pipeline_lm's microbatch and its sequential forward
+    # (S 64, one block short of 128 rows), quickstart's and train_smollm's steps
+    "pipeline_lm": (2, 64, 4, 2, 16, torch.bfloat16, True),
+    "sequential_lm": (8, 64, 4, 2, 16, torch.bfloat16, True),
+    "quickstart": (16, 128, 4, 2, 32, torch.bfloat16, True),
+    "train_smollm": (8, 128, 9, 3, 64, torch.bfloat16, True),
 }
 FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (3e-5, 2e-4)}  # (fwd, bwd)
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1092,6 +1119,12 @@ NORM_SHAPES = {
     "wide100000_f32": (8, 100000, torch.float32),  # 7 passes
     "prefill768_f32": (16384, 768, torch.float32),
     "prefill1536_f32": (16384, 1536, torch.float32),
+    # phase 17's twins: rows of 8 and 16 vectors, most lanes of a warp idle
+    "pipeline64_bf16": (128, 64, torch.bfloat16),  # pipeline_lm's microbatch (few rows)
+    "sequential64_bf16": (512, 64, torch.bfloat16),  # its sequential forward
+    "quickstart128_bf16": (2048, 128, torch.bfloat16),  # quickstart's training step
+    "prompt128_bf16": (19, 128, torch.bfloat16),  # quickstart's prompt
+    "decode128_bf16": (1, 128, torch.bfloat16),  # quickstart's decode
 }
 NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # the reference's kernel tests
 SSD_SHAPES = {
@@ -3538,6 +3571,239 @@ def phase_dryrun() -> dict:
     return out
 
 
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+# the kernels each twin must launch on the card (examples/*_torch.py); TopFilter
+# has no fused region (its filter's rate depends on the data), so
+# partition_explore's device partition runs torch ops and no stream kernel
+FLASH_AND_NORM = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm")
+SERVE_KERNELS = {"smollm-135m": ("rmsnorm",), "mamba2-130m": ("rmsnorm", "ssd_scan"),
+                 "deepseek-moe-16b": ("rmsnorm", "moe_gmm")}
+TRAIN_EXAMPLE_STEPS = 80  # crosses the failure injected at 60 and checkpoints 25, 50, 75
+PIPELINE_SECONDS = 600
+PIPELINE_RUNNER = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("pipeline_lm_torch", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+out = mod.main([])
+out.pop("output")
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def count_calls(mod, fn_name: str, counts, zero, into: dict) -> None:
+    """Wrap ``mod.<fn_name>`` so that each call's kernel launches land in
+    ``into[first argument]`` (counts set to 0 just before, read just after)."""
+    fn = getattr(mod, fn_name)
+
+    def wrapped(*args, **kw):
+        zero()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        into[args[0]] = counts()
+        return out
+
+    setattr(mod, fn_name, wrapped)
+
+
+def run_example(name: str, fn, out: dict) -> None:
+    """Run one twin, its seconds and result (or the failure) into ``out``."""
+    import traceback
+
+    print(f"  --- examples/{name}_torch.py", flush=True)
+    t0 = time.perf_counter()
+    try:
+        out[name] = fn()
+    except Exception:  # noqa: BLE001 — recorded as a failed check, fails the run
+        check(False, f"examples: {name}_torch raised:\n{traceback.format_exc()[-3000:]}")
+        out[name] = None
+        return
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out[name]["seconds"] = time.perf_counter() - t0
+
+
+def launched(name: str, counts: dict, kernels) -> None:
+    missing = [k for k in kernels if not counts.get(k)]
+    check(not missing, f"examples: {name} launched no {missing} ({counts})")
+
+
+def phase_examples(card: str) -> dict:
+    """The six example twins on the card, each passing its own checks and
+    launching each kernel of its path."""
+    from repro_torch.kernels.stream_fused import kernel as stream
+
+    print(f"phase 17: examples (examples/*_torch.py) on {card}", flush=True)
+    out: dict = {}
+
+    def stream_counts():
+        return {"fused_stream": stream.LAUNCHES}
+
+    def zero_stream():
+        stream.LAUNCHES = 0
+
+    def hetero():
+        mod = load_example("heterogeneous_stream_torch")
+        per = {}
+        count_calls(mod, "run", stream_counts, zero_stream, per)
+        res = mod.main([])
+        for net in ("Bitonic8", "IDCT8"):
+            check(res[net]["outputs_match"], f"examples: heterogeneous_stream {net} outputs")
+            launched(f"heterogeneous_stream {net}", per[net], ("fused_stream",))
+            res[net] = {k: v for k, v in res[net].items() if k not in ("host", "device")}
+        res["launches"] = {"fused_stream": {net: c["fused_stream"] for net, c in per.items()}}
+        return res
+
+    def explore():
+        zero_stream()
+        res = load_example("partition_explore_torch").main([])
+        res["launches"] = {"fused_stream": {"TopFilter": stream.LAUNCHES}}
+        check(res["outputs_match"], "examples: partition_explore outputs")
+        check(all(d == "cuda:0" for d in res["ran_on"].values()),
+              f"examples: partition_explore partitions ran on {res['ran_on']}")
+        check(bool(res["ran_on"]) == bool(res["best_hw_actors"]) and (
+            not res["ran_on"] or res["plink_launches"] >= 1),
+            f"examples: partition_explore best point {res['best_hw_actors']}, partitions "
+            f"{res['ran_on']}, {res['plink_launches']} PLink launches")
+        return {k: v for k, v in res.items() if k not in ("host", "best", "plans")}
+
+    def serve():
+        mod = load_example("serve_decode_torch")
+        per = {}
+        count_calls(mod, "run_serving", lm_counts, zero_lm_counts, per)
+        res = mod.main(["--full"])
+        for arch, kernels in SERVE_KERNELS.items():
+            r = res[arch]
+            check(1 <= r["steps"] <= 16 and r["output"].shape == (4, 16),
+                  f"examples: serve_decode {arch} output {r['output'].shape}, "
+                  f"{r['steps']} steps")
+            launched(f"serve_decode {arch}", per[arch], kernels)
+            res[arch] = dict(
+                steps=r["steps"], prefill_s=r["prefill_seconds"],
+                decode_s=r["decode_seconds"],
+                prefill_tok_s=4 * 16 / r["prefill_seconds"],
+                decode_tok_s=4 * (r["steps"] - 1) / max(r["decode_seconds"], 1e-9))
+        res["launches"] = {k: {arch: c[k] for arch, c in per.items()}
+                           for k in ("rmsnorm", "ssd_scan", "moe_gmm")}
+        return res
+
+    def train():
+        zero_lm_counts()
+        res = load_example("train_smollm_torch").main(
+            ["--full", "--steps", str(TRAIN_EXAMPLE_STEPS)])
+        torch.cuda.synchronize()
+        res["launches"] = lm_counts()
+        check(res["steps"] == TRAIN_EXAMPLE_STEPS and res["restarts"] == 1 and res["improved"]
+              and res["finite"], f"examples: train_smollm {res['steps']} steps, "
+              f"{res['restarts']} restarts, improved={res['improved']}")
+        launched("train_smollm", res["launches"], FLASH_AND_NORM)
+        steps_s = res["step_seconds"][1:]
+        res["tokens_per_s"] = res["tokens_per_step"] / float(np.median(steps_s))
+        return {k: v for k, v in res.items() if k not in ("losses", "ckpt_dir")}
+
+    def quickstart():
+        zero_lm_counts()
+        res = load_example("quickstart_torch").main([])
+        torch.cuda.synchronize()
+        res["launches"] = lm_counts()
+        losses = res["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and np.mean(losses[-10:]) < np.mean(losses[:10]) - 1.0,
+              f"examples: quickstart loss {losses[0]} -> {losses[-1]}")
+        check(1 <= res["steps"] <= 48, f"examples: quickstart {res['steps']} new tokens")
+        launched("quickstart", res["launches"], FLASH_AND_NORM)
+        return {k: v for k, v in res.items() if k not in ("losses", "tokens")}
+
+    def pipeline():
+        done = subprocess.run(
+            [sys.executable, "-c", PIPELINE_RUNNER, str(EXAMPLES / "pipeline_lm_torch.py")],
+            capture_output=True, text=True, timeout=PIPELINE_SECONDS)
+        print(done.stdout, end="", flush=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"pipeline_lm exited {done.returncode}:\n"
+                               f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+        res = json.loads(next(line[len("RESULT "):] for line in done.stdout.splitlines()
+                              if line.startswith("RESULT ")))
+        ranks = {}
+        for line in done.stdout.splitlines():
+            m = re.fullmatch(r"launches rank=(\d+) forward=(\{.*?\}) grad=(\{.*\})", line)
+            if m:
+                ranks[int(m[1])] = {"forward": json.loads(m[2]), "grad": json.loads(m[3])}
+        check(sorted(ranks) == list(range(4)), f"examples: pipeline_lm launch lines {ranks}")
+        for rank, counts in ranks.items():
+            launched(f"pipeline_lm rank {rank} forward", counts["forward"],
+                     ("flash_fwd", "rmsnorm"))
+            launched(f"pipeline_lm rank {rank} gradient", counts["grad"], FLASH_AND_NORM)
+        check(res["max_err"] < 1e-2 and res["grad_err"] < 1e-2,
+              f"examples: pipeline_lm max_err {res['max_err']}, grad_err {res['grad_err']}")
+        res["launches"] = {k: sum(c[p][k] for c in ranks.values() for p in ("forward", "grad"))
+                           for k in FLASH_AND_NORM}
+        return res
+
+    for name, fn in (("heterogeneous_stream", hetero), ("partition_explore", explore),
+                     ("serve_decode", serve), ("train_smollm", train),
+                     ("quickstart", quickstart), ("pipeline_lm", pipeline)):
+        run_example(name, fn, out)
+
+    print(f"  examples on {card}:", flush=True)
+    r = out["heterogeneous_stream"]
+    if r:
+        for net in ("Bitonic8", "IDCT8"):
+            print(f"    heterogeneous_stream {net}: outputs_match={r[net]['outputs_match']}, "
+                  f"host {r[net]['host_ms']:.3f} ms, hetero {r[net]['hetero_ms']:.3f} ms, "
+                  f"{r[net]['plink_launches']} PLink launches, stream kernel launches "
+                  f"{r['launches']['fused_stream'][net]}", flush=True)
+    r = out["partition_explore"]
+    if r:
+        print(f"    partition_explore: best point hw actors {r['best_hw_actors']} on "
+              f"{r['ran_on']}, predicted {r['predicted_ms']:.3f} ms, measured "
+              f"{r['measured_ms']:.3f} ms, {r['plink_launches']} PLink launches, stream kernel "
+              f"launches {r['launches']['fused_stream']['TopFilter']}, "
+              f"outputs_match={r['outputs_match']}",
+              flush=True)
+    r = out["serve_decode"]
+    if r:
+        for arch in SERVE_KERNELS:
+            a = r[arch]
+            print(f"    serve_decode {arch} (published widths): prefill "
+                  f"{a['prefill_tok_s']:.1f} tokens/s, decode {a['decode_tok_s']:.1f} tokens/s "
+                  f"({a['steps']} steps), launches "
+                  f"{ {k: c[arch] for k, c in r['launches'].items()} }", flush=True)
+    r = out["train_smollm"]
+    if r:
+        print(f"    train_smollm (published widths, {r['steps']} steps): loss "
+              f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}, {r['restarts']} restart(s), "
+              f"improved={r['improved']}, {r['tokens_per_s']:.1f} tokens/s (median step), "
+              f"launches {r['launches']}", flush=True)
+    r = out["quickstart"]
+    if r:
+        print(f"    quickstart: loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}, "
+              f"{r['steps']} new tokens, launches {r['launches']}", flush=True)
+    r = out["pipeline_lm"]
+    if r:
+        print(f"    pipeline_lm: max_err {r['max_err']:.3e} against the plain sequential "
+              f"forward, gradient rel_err {r['grad_err']:.3e} ({r['grad_err_plain']:.3e} "
+              f"against the plain one), pipelined forward {r['pipe_ms_median']:.3f} ms "
+              f"(host-staged hops, 4 ranks on one card) against sequential "
+              f"{r['seq_ms_median']:.3f} ms, "
+              f"launches {r['launches']}", flush=True)
+    for name, r in out.items():
+        if r:
+            print(f"    {name}: {r['seconds']:.1f} s", flush=True)
+    return out
+
+
 def build_all(programs) -> None:
     """Build every kernel library at once, one nvcc per source in parallel:
     the five sources of ``csrc/`` and the stream kernel generated for each of
@@ -3599,6 +3865,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(SRC))
     from repro_torch.apps.streams import NETWORKS
 
@@ -3631,11 +3898,25 @@ def main() -> int:
     sharded = timed(phase_sharded)
     torch.cuda.empty_cache()
     timed(phase_dryrun)
+    torch.cuda.empty_cache()
+    examples = timed(phase_examples, card)
+    print(f"chip_smoke: 17 phases in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", flush=True)
         return 1
     record = {"kernels": []}
+
+    def example_launches(kernel: str, net: str = "") -> dict:
+        """Phase 17's launches of ``kernel`` by twin: a count, or counts by
+        sub-run (architecture, network); with ``net``, that network's only."""
+        per = {name: res["launches"].get(kernel) for name, res in examples.items()}
+        if net:
+            per = {name: (c or {}).get(net) for name, c in per.items()}
+        per = {name: {k: v for k, v in c.items() if v} if isinstance(c, dict) else c
+               for name, c in per.items()}
+        return {name: c for name, c in per.items() if c}
+
     for name in FUSED_NETS:
         row = rows[(name, "main")]
         record["kernels"].append(dict(
@@ -3651,6 +3932,7 @@ def main() -> int:
             ms_by_N={rows[(name, s)]["N"]: rows[(name, s)]["kernel_ms"] for s in TOKENS},
             launches_by_path=dict(
                 run=launches[name], explore=explore["launches"].get(name),
+                examples=example_launches("fused_stream", name),
                 **({"serve_rounds": stream_serve["launches"]} if name == SERVE_NET else {}),
                 **({"serve_mixed_rounds": stream_serve["mixed"]["launches"]}
                    if name == "Bitonic8" else {}),
@@ -3694,7 +3976,8 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"], library=row["library"],
             design=designs[name],
             launches_by_path=dict(train=train["launches"][name],
-                                  sharded=sharded["launches"][name]),
+                                  sharded=sharded["launches"][name],
+                                  examples=example_launches(name)),
         ))
     def train_path(arch, name, dx=False):
         run = train_kernels[arch]
@@ -3711,7 +3994,8 @@ def main() -> int:
         row = rows_[main_shape]
         extra = dict(kernels_per_call=row["kernels_per_call"]) if name == "ssd_scan" else {}
         extra["launches_by_path"] = dict(serve=serve["launches"][name],
-                                         sharded=sharded["launches"][name])
+                                         sharded=sharded["launches"][name],
+                                         examples=example_launches(name))
         if name == "ssd_scan":
             extra["launches_by_path"]["train"] = train_path("mamba2-130m", name)
         record["kernels"].append(dict(
@@ -3732,7 +4016,8 @@ def main() -> int:
         launches_by_path=dict(serve=moe["launches"]["moe_gmm"],
                               train=train_path("deepseek-moe-16b", "moe_gmm", dx=True),
                               sharded=dict(forward_backward=sharded["launches"]["moe_gmm"],
-                                           dx=sharded["launches"]["moe_gmm_dx"])),
+                                           dx=sharded["launches"]["moe_gmm_dx"]),
+                              examples=example_launches("moe_gmm")),
     ))
     row = quant_rows["embed"]
     record["kernels"].append(dict(

@@ -14,8 +14,14 @@ are differentiable: the backward sends each cotangent one hop back, and
 the outputs' cotangent (one value every rank holds) reaches the last stage
 once.
 
-One card holds one rank, so more than one stage needs one card a stage
-(gloo ranks on the CPU in the tests).
+Where the axis' group is gloo and a tensor lies on a CUDA card, the hops
+and the masked sum go through host memory (``_on_host``): the tensor is
+copied to the host, sent or reduced there and copied back to its device.
+gloo carries no CUDA point-to-point and NCCL refuses two ranks on one card,
+so this is how several stages share one card
+(``examples/pipeline_lm_torch.py`` runs four on one H100): host-staged
+hops on one card, not a multi-card pipeline.  The stage compute never
+leaves the card; with NCCL, or with tensors on the CPU, nothing is staged.
 """
 
 from __future__ import annotations
@@ -37,9 +43,18 @@ def stack_stage_params(per_stage: list) -> PyTree:
     return tree_map(lambda *xs: torch.stack(xs), *per_stage)
 
 
+def _on_host(x: torch.Tensor, group) -> bool:
+    """Whether a collective on ``x`` over ``group`` is staged through host
+    memory: a CUDA tensor over a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
 def _shift(x: torch.Tensor, group, stage: int, n_stages: int, forward: bool) -> torch.Tensor:
     """Send ``x`` one stage on (``forward``) or back and return what arrives
     from the other side (zeros at the end that has no neighbour there)."""
+    dev = x.device
+    if _on_host(x, group):
+        x = x.cpu()
     ranks = dist.get_process_group_ranks(group)
     dst, src = (stage + 1, stage - 1) if forward else (stage - 1, stage + 1)
     got = torch.zeros_like(x)
@@ -50,7 +65,7 @@ def _shift(x: torch.Tensor, group, stage: int, n_stages: int, forward: bool) -> 
         ops.append(dist.P2POp(dist.irecv, got, ranks[src], group))
     for req in dist.batch_isend_irecv(ops) if ops else []:
         req.wait()
-    return got
+    return got.to(dev)
 
 
 class _Hop(torch.autograd.Function):
@@ -75,9 +90,10 @@ class _FromLast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, last: bool):
         ctx.last = last
-        out = x.clone() if last else torch.zeros_like(x)
+        dev = torch.device("cpu") if _on_host(x, group) else x.device
+        out = x.to(dev, copy=True) if last else torch.zeros_like(x, device=dev)
         dist.all_reduce(out, group=group)
-        return out
+        return out.to(x.device)
 
     @staticmethod
     def backward(ctx, g):

@@ -7,6 +7,11 @@ on the CPU, one stage a rank (``torch_ranks``).
 * The reduced smollm-135m at 8 blocks in 4 stages of 2 (the reference's
   ``examples/pipeline_lm.py`` setup) against the sequential forward, values
   and the gradient of a block weight through the pipeline.
+* On CPU tensors the hops and the masked sum, forward and backward, are
+  never staged through the host (the rule is for CUDA tensors on a gloo
+  group), and the outputs are bitwise the first run's.  The staging of CUDA
+  tensors needs the card: ``chip_smoke.py`` phase 17 holds it
+  (``examples/pipeline_lm_torch.py``, 4 ranks on one card).
 * ``pipeline_bubble_fraction`` and ``stack_stage_params`` against the
   reference's.
 """
@@ -81,6 +86,17 @@ def test_every_stage_returns_the_last_stage_outputs(piped, rank):
     _, res, _ = piped
     np.testing.assert_array_equal(res[rank]["tanh"], res[STAGES - 1]["tanh"])
     np.testing.assert_array_equal(res[rank]["lm"], res[STAGES - 1]["lm"])
+
+
+@pytest.mark.parametrize("rank", range(STAGES))
+def test_cpu_tensors_take_the_unstaged_path_bitwise(piped, rank):
+    """On CPU tensors over gloo the host-staging rule of the hops and the
+    masked sum never fires, forward or backward, and the outputs are
+    bitwise those of the pipeline's first run."""
+    _, res, _ = piped
+    r = res[rank]
+    assert r["staged/decided"].size > 0 and not r["staged/decided"].any()
+    assert r["staged/y"].tobytes() == r["tanh"].tobytes()
 
 
 def test_pipelined_lm_matches_sequential_forward(piped):

@@ -309,11 +309,13 @@ def case_restore(rank, world, args, res):
 
 
 def case_pipeline(rank, world, args, res):
-    """``gpipe_apply`` of the tanh stages over a (4,) ``stage`` mesh, and the
-    reduced smollm's blocks in 4 stages against the sequential forward,
-    values and gradients."""
+    """``gpipe_apply`` of the tanh stages over a (4,) ``stage`` mesh (again
+    forward and backward with the host-staging rule recorded as it
+    decides), and the reduced smollm's blocks in 4 stages against the
+    sequential forward, values and gradients."""
     import torch
 
+    from repro_torch.distributed import pipeline
     from repro_torch.distributed.pipeline import gpipe_apply, stack_stage_params
     from repro_torch.model import lm
     from repro_torch.model.blocks import block_fwd
@@ -326,6 +328,25 @@ def case_pipeline(rank, world, args, res):
     x = torch.from_numpy(data["x"])
     res["tanh"] = gpipe_apply(lambda p, x: torch.tanh(x @ p["w"] + p["b"]), params, x,
                               mesh=mesh, axis="stage").numpy()
+
+    # the same pipeline forward and backward, with the staging rule
+    # recorded at every hop and masked sum
+    decided = []
+    on_host = pipeline._on_host
+
+    def recorded(t, group):
+        decided.append(on_host(t, group))
+        return decided[-1]
+
+    try:
+        pipeline._on_host = recorded
+        xg = x.clone().requires_grad_(True)
+        y = gpipe_apply(lambda p, v: torch.tanh(v @ p["w"] + p["b"]), params, xg,
+                        mesh=mesh, axis="stage")
+        torch.autograd.grad(torch.sum(y * y), xg)
+    finally:
+        pipeline._on_host = on_host
+    res["staged/y"], res["staged/decided"] = y.detach().numpy(), np.array(decided)
 
     cfg = _cfg({"arch": "smollm-135m", "extra": {"num_layers": 8}})
     model = lm.init_model(cfg, 0, device="cpu")
