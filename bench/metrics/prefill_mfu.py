@@ -1,0 +1,4 @@
+"""The prefill's model FLOPs over the measured (untraced) window and the
+bf16 peak (work/model.py)."""
+
+from bench.harness.readers import mfu as read  # noqa: F401

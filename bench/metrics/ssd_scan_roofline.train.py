@@ -1,0 +1,3 @@
+"""The SSD scan kernels' least time over their device time in a training step."""
+
+from bench.harness.readers import ssd_scan_roofline as read  # noqa: F401

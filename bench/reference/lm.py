@@ -1,0 +1,99 @@
+"""Plain float32 reference of the benchmark's language models, written from
+their published descriptions in plain PyTorch; it imports nothing of the
+program.
+
+This module is the frame every family shares: the token embedding, a stack
+of blocks each after an RMSNorm of the residual, a final RMSNorm and the
+head tied to the embedding, the loss and the prefill.  A family's block is
+``bench/reference/<family>.py``, found by the configuration's ``family``:
+its ``param_spec(model)`` lists the block's leaves and its
+``block(p, i, x, h, model, prec)`` returns the new residual and the layer's
+cache.
+
+Departures from the published models, which the configuration files list:
+the residual stream in the activation type, and a vocabulary padded to a
+multiple of 256 whose padding is masked out of the logits.
+
+Parameters are a flat dict ``path -> tensor`` in the layout of
+:func:`param_spec` (each block leaf stacked over the layers).  Every product
+goes through ``prec.matmul`` of the given :class:`~bench.reference.
+precision.Precision`: float32 (TF32 off) for the reference, lower for the
+control.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from bench.reference.precision import Precision
+
+NEG_INF = -1e30
+
+
+def family(model: dict):
+    """The module ``bench.reference.<family>`` of the model's family."""
+    return importlib.import_module(f"bench.reference.{model['family']}")
+
+
+def padded_vocab(model: dict) -> int:
+    return -(-model["vocab_size"] // 256) * 256
+
+
+def param_spec(model: dict) -> List[Tuple[str, tuple, str, str, Optional[float]]]:
+    """(path, shape, dtype, init, scale) of every parameter.  ``init`` is
+    ``normal`` (scale ``1/sqrt(fan_in)`` unless given), ``ones``, ``ssm_a``
+    (log of uniform [1, 16]) or ``ssm_dt`` (inverse softplus of a step size
+    log-uniform in [1e-3, 1e-1])."""
+    d, L, pd = model["d_model"], model["num_layers"], model["param_dtype"]
+    return ([("embed/tok", (padded_vocab(model), d), pd, "normal", None),
+             ("layers/pos0/norm_mixer/scale", (L, d), "float32", "ones", None)]
+            + family(model).param_spec(model)
+            + [("final_norm/scale", (d,), "float32", "ones", None)])
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * scale
+
+
+def forward(p: Dict[str, torch.Tensor], model: dict, tokens: torch.Tensor, prec: Precision,
+            want_cache: bool = False):
+    """Hidden states after the final norm (b, S, d) and, with ``want_cache``,
+    the per-layer caches {leaf: [layer tensors]}."""
+    eps = model["rmsnorm_eps"]
+    block = family(model).block
+    x = p["embed/tok"][tokens.long()]
+    caches: Dict[str, list] = {}
+    for i in range(model["num_layers"]):
+        h = rms_norm(x, p["layers/pos0/norm_mixer/scale"][i], eps)
+        x, cache = block(p, i, x, h, model, prec)
+        if want_cache:
+            for key, t in cache.items():
+                caches.setdefault(key, []).append(t)
+    return rms_norm(x, p["final_norm/scale"], eps), caches
+
+
+def logits(p: Dict[str, torch.Tensor], model: dict, h: torch.Tensor, prec: Precision):
+    """(..., d) hidden -> (..., Vp) logits, padded entries masked."""
+    out = prec.matmul(h, p["embed/tok"].t())
+    Vp = out.shape[-1]
+    mask = torch.arange(Vp, device=out.device) >= model["vocab_size"]
+    return out.masked_fill(mask, NEG_INF)
+
+
+def ce_sum(p: Dict[str, torch.Tensor], model: dict, tokens: torch.Tensor, labels: torch.Tensor,
+           prec: Precision) -> torch.Tensor:
+    """Sum of token cross-entropies of a block of rows."""
+    h, _ = forward(p, model, tokens, prec)
+    lg = logits(p, model, h, prec)
+    return F.cross_entropy(lg.reshape(-1, lg.shape[-1]), labels.reshape(-1).long(),
+                           reduction="sum")
+
+
+def prefill(p: Dict[str, torch.Tensor], model: dict, tokens: torch.Tensor, prec: Precision):
+    """(last-token logits (b, Vp), caches {leaf: (layers, b, ...)})."""
+    h, caches = forward(p, model, tokens, prec, want_cache=True)
+    return logits(p, model, h[:, -1], prec), {k: torch.stack(v) for k, v in caches.items()}
