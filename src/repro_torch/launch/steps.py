@@ -32,6 +32,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.model import lm
 from repro_torch.model.layers import logical_axes as defs_logical
 from repro_torch.model.layers import torch_dtype
+from repro_torch.observability.spans import span
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -90,10 +91,13 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, accum_steps: int = 1):
 
     def loss_and_grads(params, batch):
         leaves, treedef = tree_flatten(params)
-        loss, metrics = lm.lm_loss(params, cfg, batch)
+        with span("train.forward"):
+            loss, metrics = lm.lm_loss(params, cfg, batch)
         # a leaf the loss does not reach (the token embedding of a model fed
         # embeddings) gets zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, tree_unflatten(treedef, list(grads))
 
@@ -111,7 +115,8 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, accum_steps: int = 1):
                 m_sum = {k: m_sum[k] + m[k] for k in METRIC_KEYS}
             grads = tree_map(lambda g: g / accum_steps, g_sum)
             metrics = {k: v / accum_steps for k, v in m_sum.items()}
-        new_params, new_opt, opt_metrics = adamw_update(params, grads, opt_state, opt)
+        with span("train.optimizer"):
+            new_params, new_opt, opt_metrics = adamw_update(params, grads, opt_state, opt)
         return new_params, new_opt, {**metrics, **opt_metrics}
 
     return train_step

@@ -16,6 +16,7 @@ from repro_torch.model.attention import attention, attn_defs
 from repro_torch.model.layers import mlp_defs, norm_defs, rms_norm, swiglu
 from repro_torch.model.moe import moe_defs, moe_ffn
 from repro_torch.model.ssm import init_ssm_cache, ssm_cache_logical, ssm_defs, ssm_mixer
+from repro_torch.observability.spans import span
 
 
 def block_defs(cfg, kind: BlockKind) -> Dict[str, Any]:
@@ -83,18 +84,19 @@ def block_mixer(params, x: torch.Tensor, kind: BlockKind, cfg, positions: torch.
     """The block's first half: ``x + mixer(norm(x))``.  Returns (x,
     new_cache)."""
     h = rms_norm(x, params["norm_mixer"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
-    if kind.mixer == MIXER_ATTN:
-        y, new_cache = attention(
-            params["mixer"], h, cfg, positions,
-            cache=(cache["k"], cache["v"]) if cache is not None else None,
-            write_pos=write_pos, window=window, ring=ring,
-            return_cache=return_cache or cache is not None,
-        )
-        if new_cache is not None:
-            new_cache = {"k": new_cache[0], "v": new_cache[1]}
-    else:
-        y, new_cache = ssm_mixer(
-            params["mixer"], h, cfg, cache=cache,
-            return_cache=return_cache or cache is not None,
-        )
+    with span("mixer"):
+        if kind.mixer == MIXER_ATTN:
+            y, new_cache = attention(
+                params["mixer"], h, cfg, positions,
+                cache=(cache["k"], cache["v"]) if cache is not None else None,
+                write_pos=write_pos, window=window, ring=ring,
+                return_cache=return_cache or cache is not None,
+            )
+            if new_cache is not None:
+                new_cache = {"k": new_cache[0], "v": new_cache[1]}
+        else:
+            y, new_cache = ssm_mixer(
+                params["mixer"], h, cfg, cache=cache,
+                return_cache=return_cache or cache is not None,
+            )
     return x + y, new_cache

@@ -84,6 +84,7 @@ from repro_torch.model.layers import (
     torch_dtype,
 )
 from repro_torch.model.moe import _seq_shards, moe_combine, moe_dispatch
+from repro_torch.observability.spans import span
 from repro_torch.pytree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
@@ -264,7 +265,8 @@ def forward_hidden(
     x = rms_norm(x, params["final_norm"]["scale"], cfg.rmsnorm_eps, cfg.use_kernels)
     if not collect_cache:
         return x, aux, None
-    stacked = {k: _stack(per_layer) for k, per_layer in caches.items()}
+    with span("prefill.cache"):
+        stacked = {k: _stack(per_layer) for k, per_layer in caches.items()}
     return x, aux, stacked
 
 
@@ -301,7 +303,8 @@ class _HeadF32(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _head_bwd(*ctx.saved_tensors, g)
+        with span("head.backward"):
+            return _head_bwd(*ctx.saved_tensors, g)
 
 
 def head_logits(h: torch.Tensor, w: torch.Tensor, kernels: str) -> torch.Tensor:
@@ -350,27 +353,28 @@ def _label_logit(logits, idx, vocab):
 
 def _ce_chunk(h, labels, head_w, vmask, kernels):
     """(sum of token CE, count of valid tokens) over one sequence chunk."""
-    logits = constrain(head_logits(h, head_w, kernels) + vmask, ("batch", None, None, "vocab"))
-    idx = labels.clamp_min(0)
-    if sh.is_sharded(logits):
-        # reductions over the vocabulary, which stays split (the same values
-        # and gradients): DTensor's logsumexp gathers the logits, and a
-        # gather's backward makes a zeros tensor of their global shape on
-        # every rank
-        lse = _LogSumExp.apply(logits)
-        last = logits.dim() - 1
-        pl = logits.placements
-        pi = sh.mapped(pl, {d: d for d in range(last)})
-        out = tuple(sh.Partial() if isinstance(p, sh.Shard) and p.dim == last else q
-                    for p, q in zip(pl, pi))
-        vocab = replicate(torch.arange(logits.shape[-1], device=idx.to_local().device))
-        lab = sh.local_call(_label_logit, (logits, idx, vocab),
-                            (pl, pi, sh.mapped(pl, {last: 0})), out)
-    else:
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1, idx[..., None])[..., 0]
-    valid = (labels >= 0).float()
-    return torch.sum((lse - lab) * valid), torch.sum(valid)
+    with span("loss"):
+        logits = constrain(head_logits(h, head_w, kernels) + vmask, ("batch", None, None, "vocab"))
+        idx = labels.clamp_min(0)
+        if sh.is_sharded(logits):
+            # reductions over the vocabulary, which stays split (the same values
+            # and gradients): DTensor's logsumexp gathers the logits, and a
+            # gather's backward makes a zeros tensor of their global shape on
+            # every rank
+            lse = _LogSumExp.apply(logits)
+            last = logits.dim() - 1
+            pl = logits.placements
+            pi = sh.mapped(pl, {d: d for d in range(last)})
+            out = tuple(sh.Partial() if isinstance(p, sh.Shard) and p.dim == last else q
+                        for p, q in zip(pl, pi))
+            vocab = replicate(torch.arange(logits.shape[-1], device=idx.to_local().device))
+            lab = sh.local_call(_label_logit, (logits, idx, vocab),
+                                (pl, pi, sh.mapped(pl, {last: 0})), out)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            lab = torch.gather(logits, -1, idx[..., None])[..., 0]
+        valid = (labels >= 0).float()
+        return torch.sum((lse - lab) * valid), torch.sum(valid)
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
@@ -456,7 +460,8 @@ def _logits(h: torch.Tensor, params, cfg) -> torch.Tensor:
 
 def prefill(params, cfg: ModelConfig, tokens=None, embeds=None):
     """Returns (last-token logits (B, Vp) float32, cache)."""
-    hidden, _, caches = forward_hidden(params, cfg, tokens, embeds, collect_cache=True)
+    with span("prefill.forward"):
+        hidden, _, caches = forward_hidden(params, cfg, tokens, embeds, collect_cache=True)
     return _logits(hidden[:, -1, :], params, cfg), caches
 
 

@@ -36,6 +36,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.ssd_scan.ops import on_shards
 from repro_torch.model.layers import ParamDef, dense, rms_norm, silu
+from repro_torch.observability.spans import span
 
 
 def ssm_defs(cfg) -> Dict[str, ParamDef]:
@@ -173,7 +174,7 @@ class SSDScan(torch.autograd.Function):
         pairs = [(i, g) for i, g in enumerate((gy, gstate)) if g is not None]
         if not pairs:
             return (None,) * (len(inputs) + 1)
-        with torch.enable_grad():
+        with span("ssd.backward"), torch.enable_grad():
             outs = ssd_chunked(*inputs, ctx.chunk)
             grads = iter(torch.autograd.grad([outs[i] for i, _ in pairs], wanted,
                                              [g for _, g in pairs], allow_unused=True))

@@ -14,6 +14,8 @@ One recorder, three views (see docs/observability.md):
      ``NetworkProfile`` from a recorded trace, so ``explore()`` runs the
      profile-guided DSE offline from a trace file through the same
      ingestion path as live telemetry.
+
+Copy of ``repro/observability/__init__.py``.  Edit: it exports ``span``.
 """
 
 from repro_torch.observability.chrome import (
@@ -29,6 +31,7 @@ from repro_torch.observability.metrics import (
     MetricsRegistry,
 )
 from repro_torch.observability.recorder import TraceRecorder, activate, current
+from repro_torch.observability.spans import span
 from repro_torch.observability.trace_profile import (
     authored_channel_key,
     phase_totals,
@@ -48,6 +51,7 @@ __all__ = [
     "load_trace",
     "phase_totals",
     "snapshot_from_trace",
+    "span",
     "validate_chrome_trace",
     "write_chrome_trace",
 ]

@@ -12,6 +12,9 @@ and ``"C"`` counters.
 the CI smoke bench run over every exported artifact — it returns a list of
 human-readable violations (empty = valid) so a malformed export fails
 loudly instead of rendering as a blank tracing tab.
+
+Copy of ``repro/observability/chrome.py``.  Edit: ``otherData`` carries the
+recorder's clock anchor.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ def chrome_trace(rec: TraceRecorder) -> Dict:
             "recorder": "repro_torch.observability",
             "events": rec.total_events(),
             "dropped": drops,  # explicit drop accounting, per thread
+            # lines the spans up with a torch.profiler trace (Unix clock)
+            "clock_anchor": dict(zip(("perf_counter_ns", "time_ns"), rec.clock_anchor)),
             **rec.meta,
         },
     }

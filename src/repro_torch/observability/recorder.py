@@ -31,6 +31,8 @@ Event model (one tuple per event)::
 lane the event renders on — one per scheduler thread, PLink lane, or
 serve session — and becomes a Chrome ``tid`` with a ``thread_name``
 metadata record.
+
+Copy of ``repro/observability/recorder.py``.  Edit: the clock anchor.
 """
 
 from __future__ import annotations
@@ -79,11 +81,15 @@ class TraceRecorder:
 
     Timestamps are ``time.perf_counter_ns()`` values; the recorder's
     ``t0_ns`` (taken at construction) anchors the trace so exports render
-    relative time.  All recording methods are safe from any thread.
+    relative time.  ``clock_anchor`` is a ``(perf_counter_ns, time_ns)``
+    pair read back to back at construction: ``ts - pc + unix`` puts an
+    event on the Unix clock of ``torch.profiler``'s device trace.  All
+    recording methods are safe from any thread.
     """
 
     def __init__(self, capacity_per_thread: int = DEFAULT_CAPACITY):
         self.t0_ns = time.perf_counter_ns()
+        self.clock_anchor = (self.t0_ns, time.time_ns())
         self.capacity_per_thread = max(64, int(capacity_per_thread))
         self._local = threading.local()
         self._buffers: List[_ThreadBuffer] = []

@@ -119,6 +119,59 @@ EDITS = {
             "        # fresh host tensors for both modes) inside",
         ),
     ],
+    "observability/__init__.py": [
+        (
+            '     ingestion path as live telemetry.\n',
+            '     ingestion path as live telemetry.\n'
+            '\n'
+            'Copy of ``repro/observability/__init__.py``.  Edit: it exports ``span``.\n',
+        ),
+        (
+            'from repro_torch.observability.recorder import TraceRecorder, activate, current\n',
+            'from repro_torch.observability.recorder import TraceRecorder, activate, current\n'
+            'from repro_torch.observability.spans import span\n',
+        ),
+        (
+            '    "snapshot_from_trace",\n',
+            '    "snapshot_from_trace",\n'
+            '    "span",\n',
+        ),
+    ],
+    "observability/recorder.py": [
+        (
+            'metadata record.\n',
+            'metadata record.\n'
+            '\n'
+            'Copy of ``repro/observability/recorder.py``.  Edit: the clock anchor.\n',
+        ),
+        (
+            '    relative time.  All recording methods are safe from any thread.\n',
+            '    relative time.  ``clock_anchor`` is a ``(perf_counter_ns, time_ns)``\n'
+            '    pair read back to back at construction: ``ts - pc + unix`` puts an\n'
+            "    event on the Unix clock of ``torch.profiler``'s device trace.  All\n"
+            '    recording methods are safe from any thread.\n',
+        ),
+        (
+            '        self.t0_ns = time.perf_counter_ns()\n',
+            '        self.t0_ns = time.perf_counter_ns()\n'
+            '        self.clock_anchor = (self.t0_ns, time.time_ns())\n',
+        ),
+    ],
+    "observability/chrome.py": [
+        (
+            'loudly instead of rendering as a blank tracing tab.\n',
+            'loudly instead of rendering as a blank tracing tab.\n'
+            '\n'
+            'Copy of ``repro/observability/chrome.py``.  Edit: ``otherData`` carries the\n'
+            "recorder's clock anchor.\n",
+        ),
+        (
+            '            "dropped": drops,  # explicit drop accounting, per thread\n',
+            '            "dropped": drops,  # explicit drop accounting, per thread\n'
+            '            # lines the spans up with a torch.profiler trace (Unix clock)\n'
+            '            "clock_anchor": dict(zip(("perf_counter_ns", "time_ns"), rec.clock_anchor)),\n',
+        ),
+    ],
 }
 
 CONFIGS = sorted(
