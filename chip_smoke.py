@@ -103,7 +103,12 @@ Phases, one line or more each:
              lost-state control that must exceed its limit; a
              ``ServingEngine`` (4 slots, 8 requests of 128-768 tokens) against
              each request's isolated generation; and ``run_serving`` on
-             smollm-135m at its published widths.
+             smollm-135m at its published widths (one ``flash_fwd`` a layer
+             for its prefill, none for decode), then its prefill's attention
+             through the flash forward against ``use_kernels="off"``: one
+             layer at S = 2048 and a padded 2000 (bf16 tolerance, the cache
+             bitwise), and whole 2 x 2048 prefills (30 forwards each, last
+             logits within the bf16 limit).
 8. gmm     — the grouped-matmul kernel (``src/repro_torch/csrc/moe_gmm.cu``):
              its ptxas report (a spill or serialised wgmmas fail the run),
              then against its plain PyTorch version on the card at the MoE
@@ -118,7 +123,8 @@ Phases, one line or more each:
              ``run_serving("deepseek-moe-16b", reduced=False, batch=8,
              prompt_len=2048, max_new=64, device="cuda")`` with the launch
              counts set to 0 just before and read just after (84 ``moe_gmm``
-             and 57 ``rmsnorm`` per forward and per decode step); prefill and
+             and 57 ``rmsnorm`` per forward and per decode step, 28
+             ``flash_fwd`` for the prefill); prefill and
              decode tokens/s, peak memory, the init seconds and the idle
              share of a profiled decode window with ``moe_gmm``'s ms in it
              (as phase 7's; the attention
@@ -1517,7 +1523,88 @@ def serve_main(arch: str, tag: str) -> dict:
     want_gmm = GMM_PER_FORWARD.get(arch, 0) * steps
     check(launches["moe_gmm"] == want_gmm,
           f"serve {arch}: {launches['moe_gmm']} moe_gmm launches, expected {want_gmm}")
+    # the prefill's attention: one flash forward a layer; decode runs none
+    want_flash = attention_layers(get_cfg(arch))
+    check(launches["flash_fwd"] == want_flash,
+          f"serve {arch}: {launches['flash_fwd']} flash_fwd launches, expected {want_flash}")
     return row
+
+
+def attention_layers(cfg) -> int:
+    from repro_torch.configs.base import MIXER_ATTN
+
+    return sum(cfg.block_kind(i).mixer == MIXER_ATTN for i in range(cfg.num_layers))
+
+
+# (B, S) of the attention layer alone: a multiple of kernel.TILE, then a
+# length the prefill pads to the next multiple
+FLASH_PREFILL_SHAPES = ((2, 2048), (2, 2000))
+
+
+def flash_prefill(arch: str) -> dict:
+    """A prefill's attention through the flash forward against the chunked
+    plain path (``use_kernels="off"``) at the arch's published widths: one
+    attention layer at each of ``FLASH_PREFILL_SHAPES`` (output within the
+    forward kernel's bf16 tolerance, the returned cache bitwise the same,
+    one forward launch), then whole prefills of 2 x 2048 (one forward a
+    layer each, last logits within ``BF16_LOGITS_TOL``; the cache's distance
+    from the plain path's is printed, since the layers after the first read
+    hidden states that the two attentions round differently)."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.model import attention as attn
+    from repro_torch.model import lm
+    from repro_torch.model.layers import init_params
+
+    cfg = get_cfg(arch)
+    off = dataclasses.replace(cfg, use_kernels="off")
+    tol = FLASH_TOL[torch.bfloat16][0]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    layer = init_params(attn.attn_defs(cfg), 0, default_dtype=cfg.param_dtype, device="cuda")
+    out = {"attention": []}
+    with torch.inference_mode():
+        for B, S in FLASH_PREFILL_SHAPES:
+            x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
+            pos = torch.arange(S, device="cuda")
+            before = flash.FWD_LAUNCHES
+            y, (k, v) = attn.attention(layer, x, cfg, pos, return_cache=True)
+            n = flash.FWD_LAUNCHES - before
+            y_o, (k_o, v_o) = attn.attention(layer, x, off, pos, return_cache=True)
+            row = dict(B=B, S=S, launches=n, max_abs_err=max_err(y, y_o),
+                       cache_equal=bool(torch.equal(k, k_o) and torch.equal(v, v_o)))
+            out["attention"].append(row)
+            check(n == 1, f"flash prefill {arch} S={S}: {n} forward launches, expected 1")
+            check(close(y, y_o, tol), f"flash prefill {arch} S={S}: attention off "
+                                      f"use_kernels='off' by {row['max_abs_err']:.3g}")
+            check(row["cache_equal"], f"flash prefill {arch} S={S}: cache differs from 'off'")
+        del layer
+        params = lm.init_model(cfg, 0, device="cuda")
+        tokens = torch.randint(3, cfg.vocab_size, (2, 2048), generator=g, device="cuda",
+                               dtype=torch.int32)
+        per_call = []
+        for _ in range(2):
+            before = flash.FWD_LAUNCHES
+            logits, cache = lm.prefill(params, cfg, tokens=tokens)
+            per_call.append(flash.FWD_LAUNCHES - before)
+        logits_o, cache_o = lm.prefill(params, off, tokens=tokens)
+    V = cfg.vocab_size
+    ck, ck_o = cache["pos0"]["k"], cache_o["pos0"]["k"]
+    out["prefill"] = dict(B=2, S=2048, launches_per_call=per_call,
+                          logits_max_abs_err=max_err(logits[:, :V], logits_o[:, :V]),
+                          cache_k_max_abs_err=max_err(ck, ck_o), cache_shape=list(ck.shape))
+    want = attention_layers(cfg)
+    check(per_call == [want] * 2, f"flash prefill {arch}: {per_call} forward launches a "
+                                  f"prefill, expected {want}")
+    check(bool(torch.isfinite(logits).all()), f"flash prefill {arch}: logits not finite")
+    err = out["prefill"]["logits_max_abs_err"]
+    check(err <= BF16_LOGITS_TOL, f"flash prefill {arch}: last logits off use_kernels='off' "
+                                  f"by {err:.3g} > {BF16_LOGITS_TOL}")
+    check(ck.shape == ck_o.shape, f"flash prefill {arch}: cache {tuple(ck.shape)} against "
+                                  f"'off' {tuple(ck_o.shape)}")
+    print("  " + json.dumps({"flash_prefill": out}), flush=True)
+    del params
+    return out
 
 
 def full_logits(params, cfg, tokens) -> torch.Tensor:
@@ -1727,8 +1814,10 @@ def phase_serve() -> dict:
     del params
 
     smollm = serve_main("smollm-135m", "smollm")
+    smollm_flash = flash_prefill("smollm-135m")
     return dict(main, profiled_decode=prof, profiled_prefill=prefill_prof,
-                consistency=consistency, kernels_vs_off=kvo, engine=eng, smollm=smollm)
+                consistency=consistency, kernels_vs_off=kvo, engine=eng, smollm=smollm,
+                smollm_flash_prefill=smollm_flash)
 
 
 # ---------------------------------------------------------------------------

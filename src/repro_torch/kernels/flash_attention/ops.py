@@ -13,6 +13,15 @@ On DTensors (a sharded step, ``distributed/sharding.py``) the op runs on each
 rank's shards (``sharding.local_call``): batch and heads may stay sharded,
 the sequence is gathered first; a head split that the kv heads do not
 follow is gathered as well.
+
+``model/attention.py`` sends training and prefill here (a prefill's cache
+is the k and v it passes in).  Prompts may have any length, so a causal self-attention whose length
+the tiles do not divide (``kernel.TILE`` on the card; ``block_q``/
+``block_k`` on the CPU once the length exceeds them) runs padded with zero
+rows at the end of q, k and v, and its output is cut back.  That is exact:
+under the causal mask a real query row never sees a key after it, so never
+a padded key, and the padded rows' outputs are dropped (their gradient is
+zero).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -81,6 +91,20 @@ def flash_attention(q, k, v, **kw) -> torch.Tensor:
                          (pq, pq, pq), pq)
 
 
+def _causal_pad(q, S_q: int, S_k: int, causal: bool, block_q: int, block_k: int) -> int:
+    """Zero rows to append to q, k and v so that the tiles divide a causal
+    self-attention's length: up to a multiple of ``kernel.TILE`` on the card,
+    of both blocks on the CPU once the length exceeds either.  0 for
+    another attention, which the kernels take as it is or refuse."""
+    if not causal or S_q != S_k:
+        return 0
+    if q.device.type == "cuda":
+        tile = kernel.TILE
+    else:
+        tile = math.lcm(block_q, block_k) if S_q > min(block_q, block_k) else S_q
+    return -S_q % tile
+
+
 def flash_attention_local(
     q: torch.Tensor,  # (B, S_q, H, hd)
     k: torch.Tensor,  # (B, S_k, KV, hd)
@@ -96,9 +120,16 @@ def flash_attention_local(
     ``block_q``/``block_k`` tile the plain version (CPU tensors) as the
     reference's kernel is tiled, and the sequence lengths must be multiples
     of them there; the CUDA kernels use their own tiles and check what they
-    take (``kernel.check_inputs``)."""
+    take (``kernel.check_inputs``).  A causal self-attention of another
+    length runs padded at the end (``_causal_pad``)."""
     B, S_q, H, hd = q.shape
     _, S_k, KV, _ = k.shape
+    pad = _causal_pad(q, S_q, S_k, causal, block_q, block_k)
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        out = flash_attention_local(q, k, v, causal=True, scale=scale, block_q=block_q,
+                                    block_k=block_k)
+        return out[:, :S_q]
     bq, bk = min(block_q, S_q), min(block_k, S_k)
     if q.device.type != "cuda" and (S_q % bq or S_k % bk):
         raise ValueError(f"flash_attention: S_q={S_q}, S_k={S_k} not multiples of blocks {bq}, {bk}")

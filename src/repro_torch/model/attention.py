@@ -2,14 +2,23 @@
 single-token decode branch (port of ``repro/model/attention.py``), with the
 reference's sharding constraints.
 
-``cfg.use_kernels`` picks the train/prefill path, under the reference's
-condition for its Pallas path (no window, no cache to return):
+``cfg.use_kernels`` picks the train/prefill path when there is no window:
 
   * ``"cuda"`` — ``kernels.flash_attention.flash_attention``: the CUDA kernels
     on CUDA tensors, their plain versions on CPU tensors;
   * ``"off"``  — the chunked plain path: queries in chunks whose float32 score
     block stays under a budget, each chunk recomputed in the backward pass
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+
+A prefill (``return_cache=True``) takes the flash path as training does;
+the reference takes its Pallas path only when no cache is to be returned.
+The cache a prefill returns is the projected k and v on either path, which
+the attention's output never touches, so both return the same cache.  A
+head dim or dtype the kernels do not take fails in ``kernel.check_inputs``,
+as in training.  A length the kernels' tile does not divide is padded at the
+end and cut back (``flash_attention_local``), which is exact under the
+causal mask: a real query row never sees a key after it, so never a padded
+one.
 
 Decode (a cache given) is the reference's plain branch: scalar or per-slot
 ``(B,)`` write positions, the window mask and the ring cache, float32 scores
@@ -220,6 +229,13 @@ def _project_qkv(params, x, cfg, positions):
     return q, k, v
 
 
+def _kv_cache(k, v):
+    """The cache a prefill returns: its projected k and v, in the decode
+    cache's sharding."""
+    return (constrain(k, ("kv_batch", "kv_seq", "kv_heads", None)),
+            constrain(v, ("kv_batch", "kv_seq", "kv_heads", None)))
+
+
 def _decode_scores(q, ck, wp, positions, window: int, ring: bool, cfg, scale: float,
                    offset: int = 0, S_max: Optional[int] = None):
     """Masked float32 scores (B, kv, G, S) of q (B, 1, H, hd) against the
@@ -390,12 +406,12 @@ def attention(
     if cache is not None:
         return _decode(params, q, k, v, cache, write_pos, positions, window, ring, cfg,
                        scale)
-    if cfg.use_kernels != "off" and window == 0 and not return_cache:
+    if cfg.use_kernels != "off" and window == 0:
         from repro_torch.kernels.flash_attention.ops import flash_attention
 
         out = flash_attention(q, k, v, causal=True)
         y = dense(sh.merge_dims(out, 2, 2), params["wo"])
-        return constrain(y, ("batch", "seq", "embed")), None
+        return constrain(y, ("batch", "seq", "embed")), (_kv_cache(k, v) if return_cache else None)
 
     q = constrain(q, ("batch", "seq_q", "heads", None))
     k = constrain(k, ("batch", "seq_full", "kv_heads", None))
@@ -430,10 +446,4 @@ def attention(
         out_flat = constrain(out_flat, ("batch", "attn_out_seq", None))
     y = dense(out_flat, params["wo"])
     y = constrain(y, ("batch", "seq", "embed"))
-    new_cache = None
-    if return_cache:  # store in the decode-cache sharding
-        new_cache = (
-            constrain(k, ("kv_batch", "kv_seq", "kv_heads", None)),
-            constrain(v, ("kv_batch", "kv_seq", "kv_heads", None)),
-        )
-    return y, new_cache
+    return y, (_kv_cache(k, v) if return_cache else None)
