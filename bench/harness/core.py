@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
-from bench.harness import cells
+from bench.harness import cells, spans
 from bench.harness.trace import Trace, Tracer, sync
 from bench.reference.precision import Precision, float32_products
 
@@ -34,7 +34,8 @@ def driver(kind: str):
 class Run:
     """What a metric's reader gets: the cell's files, the set-up seconds,
     the measured window's counts and host times, and in a traced run the
-    traced window's counts and its trace."""
+    traced window's counts, its trace and its device work by program
+    span."""
 
     cell: dict
     seed: int
@@ -64,6 +65,10 @@ class Run:
     @property
     def trace(self) -> Optional[Trace]:
         return self.tracer.trace
+
+    @property
+    def spans(self) -> Optional[spans.Credit]:
+        return self.tracer.spans
 
 
 def metrics_of(name: str, trace: bool, spec: Optional[dict] = None) -> list:
@@ -128,7 +133,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: torch.d
         slower = 100.0 * (t["seconds"] / t["calls"]) / (w["seconds"] / max(w["calls"], 1)) - 100
         print(f"bench: traced {t['calls']} calls in {t['seconds']:.3f} s, {slower:+.1f}% a call "
               f"against the measured window; {len(run.trace.kernels)} kernels for "
-              f"{run.trace.launch_calls} launch calls", file=sys.stderr)
+              f"{run.trace.launch_calls} launch calls; device stamps up to "
+              f"{run.trace.late_s * 1e3:.3f} ms past the window's end", file=sys.stderr)
+        print(spans.table(run.spans, t["calls"]), file=sys.stderr)
     return result
 
 

@@ -1,12 +1,14 @@
 """The system under test, as the benchmark calls it: the PyTorch port
 ``repro_torch`` (under ``src/`` of the checkout), its model configuration,
-its training and prefill steps.  Nothing else of the program is used.
+its training and prefill steps, and the recorder of its spans.  Nothing
+else of the program is used.
 
 Tests replace these functions to break the timed path underneath a run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 from typing import Dict
@@ -79,3 +81,15 @@ def prefill_step(cfg):
     from repro_torch.launch.steps import make_prefill_step
 
     return make_prefill_step(cfg)
+
+
+@contextlib.contextmanager
+def recording():
+    """The program's span recorder, active inside the block: while the
+    profiler records, each span the program opens lies in its trace.
+    Yields the recorder (``drops()``: events its rings lost)."""
+    _port()
+    from repro_torch.observability import TraceRecorder, activate
+
+    with activate(TraceRecorder()) as rec:
+        yield rec

@@ -5,20 +5,21 @@ read (a trace in an untraced run, a kernel that did not run).  A share of a
 roofline or a peak is never returned as 0 for nothing read.
 
 Rates and the model FLOP share are read from the measured window, which is
-never traced; what needs the trace (busy time, launches, kernel times) is
-read from the traced calls after it and counted per traced call."""
+never traced; what needs the trace (busy time, launches, kernel times, the
+device time of the program's spans) is read from the traced calls after it
+and counted per traced call."""
 
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+from bench.harness import spans
 from bench.work import BF16_FLOPS_PER_S, kernels, model as model_work
 
 FLASH_FWD = "flash_fwd"
 FLASH_BWD = ("flash_bwd_dq", "flash_bwd_dkv")  # one backward: a dQ and a dK/dV launch
 SSD = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")  # one bf16 call's kernels
-F32_GEMMS = ("sgemm", "gemm_f32f32_f32f32")  # cuBLAS's float32 GEMM kernels
 
 
 def setup_s(run) -> float:
@@ -118,10 +119,7 @@ def rmsnorm_roofline(run) -> Optional[float]:
     return 100.0 * least / spent
 
 
-def f32_gemm_ms(run) -> Optional[float]:
-    """Device ms per traced call in cuBLAS's float32 GEMM kernels."""
-    calls = _traced_calls(run)
-    if not calls:
-        return None
-    secs, n = run.trace.kernel_time(*F32_GEMMS)
-    return secs * 1e3 / calls if n else None
+def span_ms(run, *names: str) -> Optional[float]:
+    """Device ms per traced call credited to the program spans ``names``
+    (self time, ``spans.span_ms``): nothing where the window lost records."""
+    return spans.span_ms(run.spans, _traced_calls(run), *names)

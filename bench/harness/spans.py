@@ -16,17 +16,19 @@ time (work credited to a span is not its parent's); work under no program
 span goes to ``OUTSIDE``, so the table sums to every device activity in the
 window.
 
-The profiler can lose records, and a lost record moves a span's reading
-with no error of its own.  So the crediting counts what it cannot match: a
-device activity whose correlation id has no runtime call, and a kernel
-launch in the window with no device activity in it (lost, or stamped
-outside the window); and it compares each span's
-kernels between the traced calls, which do the same work.  ``faults()``
-names each; the table prints them.
+The window's activities are those its calls launched
+(``trace.window_activities``), whatever their stamps.  The profiler can
+lose records, and a lost record moves a span's reading with no error of
+its own.  So the crediting counts what it cannot match: a device activity
+whose correlation id has no runtime call, and a kernel launch in the
+window with no device activity in the trace; it compares each span's
+kernels between the traced calls, which do the same work; and it keeps
+what the program's recorder dropped.  ``faults()`` names each; the table
+prints them, and the readers read nothing from a window with a fault.
 
-``trace.Tracer.window`` does not call this yet (PERF.md, Open questions): a
-run that reads it activates a ``TraceRecorder`` for the traced calls, takes
-``raw_events(prof)`` and hands them to ``credit``.
+``trace.Tracer.window`` records the program's spans over the traced calls
+and hands ``raw_events(prof)`` to ``credit``; the run keeps the result as
+``run.spans``.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ from __future__ import annotations
 import bisect
 import re
 from collections import defaultdict
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import torch
 
@@ -51,24 +53,29 @@ class Credit:
     device_s: float                      # every device activity in the window, summed
     by_span: Dict[str, List[float]]      # name -> [device seconds, kernels] (self)
     unlaunched: int                      # device activities whose launch is not in the trace
-    unrun: int                           # kernel launches in the window whose work is not in it
+    unrun: int                           # kernel launches in the window with no device record
     uneven: Dict[str, List[int]]         # "span in call" -> its kernels in each traced call, where they differ
+    dropped: Dict[str, int] = field(default_factory=dict)  # thread -> span events dropped
 
     def faults(self) -> List[str]:
-        """What the profiler lost, as far as the trace shows: empty where
-        every record matched and every traced call read the same."""
+        """What the profiler or the recorder lost, as far as the trace
+        shows: empty where every record matched and every traced call read
+        the same."""
         out = []
         if self.unlaunched:
             out.append(f"{self.unlaunched} device activities with no launching call in the trace")
         if self.unrun:
-            out.append(f"{self.unrun} kernel launches in the window with no device activity in it")
+            out.append(f"{self.unrun} kernel launches in the window with no device activity "
+                       f"in the trace")
         out += [f"{k}: kernels per call differ {v}" for k, v in sorted(self.uneven.items())]
+        out += [f"the program's recorder dropped {n} span events on thread {t}"
+                for t, n in sorted(self.dropped.items())]
         return out
 
 
 def raw_events(prof) -> dict:
-    """``trace.raw_events(prof)`` and what crediting needs beside it, times
-    in seconds: ``program`` (name, start, end) of each program span,
+    """``trace.raw_events(prof)`` and what crediting and ``trace.reduce``
+    need beside it, times in seconds: ``program`` (name, start, end) of each program span,
     ``corr`` the correlation id of each entry of ``device``, and ``launch``
     {correlation id: (start, name)} of each CUDA runtime call (a call that
     launched work shares its id with that work)."""
@@ -90,31 +97,12 @@ def raw_events(prof) -> dict:
     return dict(ev, program=program, corr=corr, launch=launch)
 
 
-class _Innermost:
-    """The innermost program span open at each of a rising sequence of
-    times: the one opened last among those covering the time."""
-
-    def __init__(self, program):
-        self.spans = sorted((s, e, n) for n, s, e in program)
-        self.i = 0
-        self.open: List[Tuple[float, float, str]] = []
-
-    def at(self, t: float) -> Optional[str]:
-        while self.i < len(self.spans) and self.spans[self.i][0] <= t:
-            self.open.append(self.spans[self.i])
-            self.i += 1
-        self.open = [sp for sp in self.open if sp[1] > t]
-        return self.open[-1][2] if self.open else None
-
-
-def credit(ev: dict) -> Credit:
-    windows = [(s, e) for n, s, e in ev["spans"] if n == "window"]
-    if len(windows) != 1:
-        raise RuntimeError(f"the trace holds {len(windows)} window spans, not 1")
-    w0, w1 = windows[0]
-    inside = [(max(s, w0), min(e, w1), k, c) for (_, s, e, k), c in zip(ev["device"], ev["corr"])
-              if e > w0 and s < w1]
-    ran = {c for _, _, _, c in inside}
+def credit(ev: dict, dropped: Optional[Dict[str, int]] = None) -> Credit:
+    """The window's device work by program span; ``dropped``: the span
+    events the program's recorder dropped, by thread."""
+    w0, w1 = trace.window_of(ev)
+    inside = [(s, e, k, c) for s, e, _, k, c in trace.window_activities(ev)]
+    ran = set(ev["corr"])
     unrun = sum(1 for c, (t, name) in ev["launch"].items()
                 if "LaunchKernel" in name and w0 <= t <= w1 and c not in ran)
 
@@ -127,7 +115,7 @@ def credit(ev: dict) -> Credit:
     by_span[OUTSIDE] = [0.0, 0]
     unlaunched = sum(c not in ev["launch"] for _, _, _, c in inside)
     launched = sorted((ev["launch"].get(c, (float("-inf"),))[0], s, e, k) for s, e, k, c in inside)
-    inner = _Innermost(ev["program"])
+    inner = trace.Innermost(ev["program"])
     for t, s, e, k in launched:
         name = inner.at(t) or OUTSIDE
         by_span[name][0] += e - s
@@ -144,7 +132,7 @@ def credit(ev: dict) -> Credit:
             if len(set(counts)) > 1:
                 uneven[f"{name} in {call}"] = counts
     return Credit(device_s=sum(e - s for s, e, _, _ in inside), by_span=by_span,
-                  unlaunched=unlaunched, unrun=unrun, uneven=uneven)
+                  unlaunched=unlaunched, unrun=unrun, uneven=uneven, dropped=dict(dropped or {}))
 
 
 def table(cr: Credit, calls: int) -> str:
@@ -160,16 +148,22 @@ def table(cr: Credit, calls: int) -> str:
     return "\n".join(lines)
 
 
+def _readable(cr: Optional[Credit], calls: int) -> bool:
+    return cr is not None and calls > 0 and not cr.faults()
+
+
 def span_ms(cr: Optional[Credit], calls: int, *names: str) -> Optional[float]:
     """Device ms per call credited to the spans ``names``; nothing where the
-    trace holds none of them."""
-    rows = [cr.by_span[n] for n in names if n in cr.by_span] if cr is not None and calls else []
-    return sum(s for s, _ in rows) * 1e3 / calls if rows else None
+    trace credits them no device activity, or the window has a fault."""
+    if not _readable(cr, calls):
+        return None
+    secs = sum(cr.by_span[n][0] for n in names if n in cr.by_span)
+    return secs * 1e3 / calls if secs > 0 else None
 
 
 def span_kernels(cr: Optional[Credit], calls: int, name: str) -> Optional[float]:
     """Kernels per call credited to the span ``name``; nothing where the
-    trace holds none of it."""
-    if cr is None or not calls or name not in cr.by_span:
+    trace credits it none, or the window has a fault."""
+    if not _readable(cr, calls) or not cr.by_span.get(name, [0, 0])[1]:
         return None
     return cr.by_span[name][1] / calls

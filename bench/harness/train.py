@@ -160,14 +160,16 @@ def reference_readings(run, prec: Precision, rows: Optional[int] = None) -> dict
 
 
 def _loss_and_grads(params, model, batch, prec, rows):
+    """(float32 gradients, loss) of the batch's training loss
+    (``lm.train_loss``), its rows taken ``rows`` at a time."""
     leaves = {k: v.detach().to(torch.float32, copy=True).requires_grad_(True)
               for k, v in params.items()}
     tokens, labels = batch["tokens"], batch["labels"]
-    count = labels.numel()
     total = 0.0
     grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
     for r in range(0, tokens.shape[0], rows):
-        loss = lm.ce_sum(leaves, model, tokens[r:r + rows], labels[r:r + rows], prec) / count
+        loss = lm.train_loss(leaves, model, tokens[r:r + rows], labels[r:r + rows], prec,
+                             tuple(labels.shape))
         for g, d in zip(grads.values(), torch.autograd.grad(loss, list(leaves.values()))):
             g.add_(d)
         total += float(loss.detach())

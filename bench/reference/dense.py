@@ -68,11 +68,11 @@ def attention(p: Dict[str, torch.Tensor], i: int, h: torch.Tensor, model: dict,
 def block(p: Dict[str, torch.Tensor], i: int, x: torch.Tensor, h: torch.Tensor, model: dict,
           prec: Precision):
     """Layer i on the residual x (b, S, d), h its mixer-normed input.
-    Returns (new residual, cache {k, v})."""
+    Returns (new residual, cache {k, v}, no loss readings)."""
     y, (k, v) = attention(p, i, h, model, prec)
     x = x + y
     h = rms_norm(x, p[BLOCK + "norm_ffn/scale"][i], model["rmsnorm_eps"])
     mm = prec.matmul
     f = mm(F.silu(mm(h, p[BLOCK + "ffn/w_gate"][i])) * mm(h, p[BLOCK + "ffn/w_up"][i]),
            p[BLOCK + "ffn/w_down"][i])
-    return x + f, {"k": k, "v": v}
+    return x + f, {"k": k, "v": v}, {}

@@ -4,11 +4,17 @@ program.
 
 This module is the frame every family shares: the token embedding, a stack
 of blocks each after an RMSNorm of the residual, a final RMSNorm and the
-head tied to the embedding, the loss and the prefill.  A family's block is
-``bench/reference/<family>.py``, found by the configuration's ``family``:
-its ``param_spec(model)`` lists the block's leaves and its
-``block(p, i, x, h, model, prec)`` returns the new residual and the layer's
-cache.
+head tied to the embedding, the training loss and the prefill.  A family's
+block is ``bench/reference/<family>.py``, found by the configuration's
+``family``: its ``param_spec(model)`` lists the block's leaves and its
+``block(p, i, x, h, model, prec)`` returns the new residual, the layer's
+cache and the layer's loss readings, a dict that is empty where the family
+adds nothing to the loss.  A family whose blocks read something defines
+``loss_terms(terms, model, batch)``: the readings of every layer
+(``{name: [one per layer]}``) of a block of rows, turned into that block's
+share of the family's own loss terms for a batch of shape ``batch`` (B, S).
+The shares of the blocks of rows of a batch add up to the batch's terms, as
+their cross-entropies add up to its mean (:func:`train_loss`).
 
 Departures from the published models, which the configuration files list:
 the residual stream in the activation type, and a vocabulary padded to a
@@ -61,19 +67,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def forward(p: Dict[str, torch.Tensor], model: dict, tokens: torch.Tensor, prec: Precision,
             want_cache: bool = False):
-    """Hidden states after the final norm (b, S, d) and, with ``want_cache``,
-    the per-layer caches {leaf: [layer tensors]}."""
+    """Hidden states after the final norm (b, S, d), with ``want_cache`` the
+    per-layer caches {leaf: [layer tensors]}, and the blocks' loss readings
+    {name: [layer tensors]}."""
     eps = model["rmsnorm_eps"]
     block = family(model).block
     x = p["embed/tok"][tokens.long()]
     caches: Dict[str, list] = {}
+    terms: Dict[str, list] = {}
     for i in range(model["num_layers"]):
         h = rms_norm(x, p["layers/pos0/norm_mixer/scale"][i], eps)
-        x, cache = block(p, i, x, h, model, prec)
+        x, cache, read = block(p, i, x, h, model, prec)
         if want_cache:
             for key, t in cache.items():
                 caches.setdefault(key, []).append(t)
-    return rms_norm(x, p["final_norm/scale"], eps), caches
+        for key, t in read.items():
+            terms.setdefault(key, []).append(t)
+    return rms_norm(x, p["final_norm/scale"], eps), caches, terms
 
 
 def logits(p: Dict[str, torch.Tensor], model: dict, h: torch.Tensor, prec: Precision):
@@ -84,16 +94,21 @@ def logits(p: Dict[str, torch.Tensor], model: dict, h: torch.Tensor, prec: Preci
     return out.masked_fill(mask, NEG_INF)
 
 
-def ce_sum(p: Dict[str, torch.Tensor], model: dict, tokens: torch.Tensor, labels: torch.Tensor,
-           prec: Precision) -> torch.Tensor:
-    """Sum of token cross-entropies of a block of rows."""
-    h, _ = forward(p, model, tokens, prec)
+def train_loss(p: Dict[str, torch.Tensor], model: dict, tokens: torch.Tensor,
+               labels: torch.Tensor, prec: Precision, batch: Tuple[int, int]) -> torch.Tensor:
+    """A block of rows' share of the training loss of a batch of shape
+    ``batch`` (B, S): the sum of its token cross-entropies over B * S, plus
+    the family's ``loss_terms`` of its readings, where its blocks read any."""
+    h, _, terms = forward(p, model, tokens, prec)
     lg = logits(p, model, h, prec)
-    return F.cross_entropy(lg.reshape(-1, lg.shape[-1]), labels.reshape(-1).long(),
-                           reduction="sum")
+    loss = F.cross_entropy(lg.reshape(-1, lg.shape[-1]), labels.reshape(-1).long(),
+                           reduction="sum") / (batch[0] * batch[1])
+    if terms:
+        loss = loss + family(model).loss_terms(terms, model, batch)
+    return loss
 
 
 def prefill(p: Dict[str, torch.Tensor], model: dict, tokens: torch.Tensor, prec: Precision):
     """(last-token logits (b, Vp), caches {leaf: (layers, b, ...)})."""
-    h, caches = forward(p, model, tokens, prec, want_cache=True)
+    h, caches, _ = forward(p, model, tokens, prec, want_cache=True)
     return logits(p, model, h[:, -1], prec), {k: torch.stack(v) for k, v in caches.items()}

@@ -104,6 +104,6 @@ def mixer(p: Dict[str, torch.Tensor], i: int, h: torch.Tensor, model: dict, prec
 def block(p: Dict[str, torch.Tensor], i: int, x: torch.Tensor, h: torch.Tensor, model: dict,
           prec: Precision):
     """Layer i on the residual x (b, S, d), h its normed input.  Returns
-    (new residual, cache {state, conv_x, conv_b, conv_c})."""
+    (new residual, cache {state, conv_x, conv_b, conv_c}, no loss readings)."""
     y, cache = mixer(p, i, h, model, prec)
-    return x + y, cache
+    return x + y, cache, {}

@@ -8,9 +8,11 @@ names); the weights and inputs come from ``--seed``; set-up, including the
 first steps that the reference checks, is timed as ``setup_s``; then the
 window runs ``--seconds``.  With ``--trace 1`` the window runs as it does
 untraced, then the traffic's ``trace_calls`` more calls run under
-``torch.profiler``, and the per-layer metrics are read from both.  The last
-line of standard output is the result; the numbers compared with the
-reference, each beside its limit, are the last lines of standard error.
+``torch.profiler`` with the program's spans recorded, the device time by
+program span is printed to standard error, and the per-layer metrics are
+read from both windows.  The last line of standard output is the result;
+the numbers compared with the reference, each beside its limit, are the
+last lines of standard error.
 
 Exits 2 with no result without a CUDA card, and 3 if a JAX package or the
 JAX reference package was loaded.  Kernel build and compile caches live at

@@ -1,8 +1,9 @@
 """Crediting device work to the program's spans, on events made by hand:
 work goes to the innermost span open at its launch (found by correlation
 id), whichever thread opened it; the table sums to the device's total; a
-lost record and a span whose kernels differ between calls are flagged; a
-reader whose span is absent reads nothing."""
+lost record and a span whose kernels differ between calls are flagged, a
+record stamped after the window is not lost; a reader whose span is absent
+reads nothing."""
 
 import pytest
 import torch
@@ -24,7 +25,7 @@ def events():
     ``ssd.backward`` while the main thread waits in ``train.backward``, and
     launches kB and a copy there; kC is launched in the backward outside
     the SSD span; the optimizer launches kD.  kE is launched between the
-    steps and runs past the window's end; kZ runs before the window."""
+    steps and stamped past the window's end; kZ runs before the window."""
     program, device, corr, launch = [], [], [], {}
     for t0 in (0.0, 5.0):
         program += [("train.forward", t0, t0 + 1.0), ("mixer", t0 + 0.2, t0 + 0.5),
@@ -53,16 +54,16 @@ def test_work_is_credited_to_the_innermost_span_at_its_launch():
     assert cr.by_span["ssd.backward"] == [2.0, 2]            # kB and the copy (not a kernel)
     assert cr.by_span["train.backward"] == [1.0, 2]          # kC
     assert cr.by_span["train.optimizer"] == [1.0, 2]         # kD
-    assert cr.by_span[spans.OUTSIDE] == [0.5, 1]             # kE, clipped at the window
+    assert cr.by_span[spans.OUTSIDE] == [2.5, 1]             # kE, whole: launched in the window
     assert cr.faults() == []
 
 
 def test_the_table_sums_to_the_device_total():
     cr = spans.credit(events())
     assert sum(s for s, _ in cr.by_span.values()) == pytest.approx(cr.device_s)
-    assert cr.device_s == pytest.approx(5.5)
+    assert cr.device_s == pytest.approx(7.5)
     text = spans.table(cr, calls=2)
-    assert "ssd.backward" in text and "2750.000" in text     # 5.5 s over 2 calls
+    assert "ssd.backward" in text and "3750.000" in text     # 7.5 s over 2 calls
     assert "LOST" not in text
 
 
@@ -77,7 +78,8 @@ def _no_device(ev):
 
 
 def _late(ev):
-    """kD's device record in the second step is stamped after the window."""
+    """kD's device record in the second step is stamped after the window:
+    it is credited by its launch, and nothing is lost."""
     ev["device"][9] = ("k", 10.5, 11.0, True)
 
 
@@ -91,10 +93,9 @@ def _more_work(ev):
 @pytest.mark.parametrize("fault, want", [
     (_no_launch, ["1 device activities with no launching call in the trace",
                   "train.backward in train_step: kernels per call differ [1, 0]"]),
-    (_no_device, ["1 kernel launches in the window with no device activity in it",
+    (_no_device, ["1 kernel launches in the window with no device activity in the trace",
                   "train.optimizer in train_step: kernels per call differ [1, 0]"]),
-    (_late, ["1 kernel launches in the window with no device activity in it",
-             "train.optimizer in train_step: kernels per call differ [1, 0]"]),
+    (_late, []),
     (_more_work, ["train.optimizer in train_step: kernels per call differ [2, 1]"]),
 ], ids=["no_launch", "no_device", "late", "uneven"])
 def test_lost_records_are_flagged(fault, want):
@@ -103,7 +104,8 @@ def test_lost_records_are_flagged(fault, want):
     cr = spans.credit(ev)
     assert cr.faults() == want
     assert sum(s for s, _ in cr.by_span.values()) == pytest.approx(cr.device_s)
-    assert spans.table(cr, calls=2).splitlines()[-len(want):] == [f"LOST RECORDS: {w}" for w in want]
+    lost = [line for line in spans.table(cr, calls=2).splitlines() if line.startswith("LOST")]
+    assert lost == [f"LOST RECORDS: {w}" for w in want]
 
 
 @pytest.mark.parametrize("read", [
