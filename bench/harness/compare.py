@@ -12,9 +12,9 @@ import torch
 from bench.harness.weights import leaf_tensors
 
 
-def leaf_norms(flat: Dict[str, torch.Tensor], num_layers: int) -> Dict[str, float]:
+def leaf_norms(flat: Dict[str, torch.Tensor], model: dict) -> Dict[str, float]:
     """The float32 norm of every leaf, each layer of a stacked leaf its own."""
-    leaves = leaf_tensors(flat, num_layers)
+    leaves = leaf_tensors(flat, model)
     norms = torch.stack([torch.linalg.vector_norm(t.detach().float()) for t in leaves.values()])
     return dict(zip(leaves, norms.tolist()))
 

@@ -56,18 +56,17 @@ def setup(run) -> dict:
     params = program.params_tree(flat, train=True)
     state = program.init_opt_state(params, opt)
     step = program.train_step(cfg, opt)
-    L = model["num_layers"]
     losses = []
     for k in range(1, run.traffic["check_steps"] + 1):
         params, state, metrics = step(params, state, feed(run, k))
         losses.append(metrics["loss"])
         if k == 1:  # the first gradient as the optimizer took it: m = (1 - b1) g
             grads = {n: t / (1 - opt["b1"]) for n, t in flatten(state["m"]).items()}
-            grad_norms = compare.leaf_norms(grads, L)
+            grad_norms = compare.leaf_norms(grads, model)
             del grads
     cur = flatten(params)
     with torch.no_grad():
-        change = compare.leaf_norms({n: cur[n].float() - p0[n].float() for n in p0}, L)
+        change = compare.leaf_norms({n: cur[n].float() - p0[n].float() for n in p0}, model)
     del p0, cur
     readings = {"losses": [float(x) for x in losses], "grad_norms": grad_norms,
                 "change_norms": change}
@@ -142,7 +141,6 @@ def reference_readings(run, prec: Precision, rows: Optional[int] = None) -> dict
     and batches, float32 products (or the control's), rows in blocks.
     ``rows`` keeps only the first rows of each batch (a planted fault)."""
     model, opt, t = run.model, run.traffic["optimizer"], run.traffic
-    L = model["num_layers"]
     params = make_weights(model, run.seed, run.device)
     p0 = {k: v.clone() for k, v in params.items()}
     state: Dict[str, Dict[str, torch.Tensor]] = {"m": {}, "v": {}}
@@ -152,10 +150,10 @@ def reference_readings(run, prec: Precision, rows: Optional[int] = None) -> dict
         grads, loss = _loss_and_grads(params, model, batch, prec, t["reference_rows"])
         losses.append(loss)
         if k == 1:
-            grad_norms = compare.leaf_norms(adamw.clipped(grads, opt["clip_norm"]), L)
+            grad_norms = compare.leaf_norms(adamw.clipped(grads, opt["clip_norm"]), model)
         adamw.update(params, grads, state, k, opt)
         del grads
-    change = compare.leaf_norms({n: params[n].float() - p0[n].float() for n in p0}, L)
+    change = compare.leaf_norms({n: params[n].float() - p0[n].float() for n in p0}, model)
     return {"losses": losses, "grad_norms": grad_norms, "change_norms": change}
 
 

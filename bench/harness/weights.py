@@ -16,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from bench.reference.lm import param_spec
+from bench.reference.lm import LEAD, family_layers, lead_layers, param_spec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -84,16 +84,19 @@ def flatten(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
-def leaf_tensors(flat: Dict[str, torch.Tensor], num_layers: int) -> Dict[str, torch.Tensor]:
-    """One entry per layer of each stacked block leaf (``layers/...`` leaves
-    carry the layers on their first axis), the other leaves as they are:
-    the leaves the training check compares one by one."""
+def leaf_tensors(flat: Dict[str, torch.Tensor], model: dict) -> Dict[str, torch.Tensor]:
+    """One entry per layer of each stacked block leaf, ``path[i]`` (a
+    ``layers/...`` leaf carries its group's layers on its first axis: the
+    leading dense layers under ``layers/lead/``, the family's stack
+    otherwise), the other leaves as they are: the leaves the training check
+    compares one by one."""
     out: Dict[str, torch.Tensor] = {}
     for path, t in flat.items():
         if path.startswith("layers/"):
-            if t.shape[0] != num_layers:
-                raise ValueError(f"{path}: {t.shape[0]} layers stacked, not {num_layers}")
-            for i in range(num_layers):
+            n = lead_layers(model) if path.startswith(LEAD) else family_layers(model)
+            if t.shape[0] != n:
+                raise ValueError(f"{path}: {t.shape[0]} layers stacked, not {n}")
+            for i in range(n):
                 out[f"{path}[{i}]"] = t[i]
         else:
             out[path] = t

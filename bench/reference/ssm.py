@@ -14,16 +14,16 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from bench.reference.lm import NEG_INF, rms_norm
+from bench.reference.lm import NEG_INF, STACK, family_layers, rms_norm
 from bench.reference.precision import Precision
 
-MIXER = "layers/pos0/mixer/"
+MIXER = STACK + "mixer/"
 
 
 def param_spec(model: dict) -> list:
     """(path, shape, dtype, init, scale) of the block leaves, stacked over
-    the layers, after the mixer's norm."""
-    d, L, pd = model["d_model"], model["num_layers"], model["param_dtype"]
+    the family's layers, after the mixer's norm."""
+    d, L, pd = model["d_model"], family_layers(model), model["param_dtype"]
     di, ds, W = model["ssm_expand"] * d, model["ssm_state"], model["ssm_conv_width"]
     nh = di // model["ssm_head_dim"]
     m = MIXER
