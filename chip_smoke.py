@@ -86,7 +86,16 @@ Phases, one line or more each:
              float32's), ``F.rms_norm`` beside RMSNorm (no PyTorch call
              computes the SSD scan), and at the SSD path each of the call's
              three kernels' device time from the profiler, which must see
-             each of them once a call.
+             each of them once a call.  Then the SSD backward kernels
+             (``ssd_bwd_*``, every one strict on its ptxas report) against
+             ``ref.ssd_scan_bwd_ref`` in float32 on the same bf16 inputs,
+             with the final state's cotangent and without, at the path, the
+             mamba2-130m training cell's shape (B=24), da > 0 and the two
+             ragged shapes, within SSD_BWD_TOL, two calls bit for bit; at
+             the path its time, each kernel's, the plain vjp's and the bound
+             (the count of ``bench/metrics/ssd_bwd_roofline.train.py``).
+             The forward's and the backward's entries each refuse the
+             other's layout of x in their own check.
 7. serve   — LM serving, this slice's main path:
              ``repro_torch.launch.serve.run_serving("mamba2-130m",
              reduced=False, batch=8, prompt_len=2048, max_new=64,
@@ -209,7 +218,8 @@ Phases, one line or more each:
              and new in the update), ``use_kernels="cuda"``.  First one
              ``lm_loss`` forward and backward on the seeded parameters and
              batch: the kernels launched in the forward and in the backward
-             (``ssd_scan`` 24 + 24 in the blocks' recompute; ``moe_gmm``
+             (``ssd_scan`` 24 + 24 in the blocks' recompute and 24
+             ``ssd_scan_bwd``, one a layer; ``moe_gmm``
              forwards, their recompute and dx launches apart; flash and
              RMSNorm), the loss within 2e-2 of ``use_kernels="off"`` and the
              gradient norm within 2e-2 relative, and for deepseek the loss
@@ -1148,6 +1158,26 @@ SSD_TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (2e-3, 2e-3)}  # (y, sta
 # da > 0 on every second head, a_cs rising by a few units a chunk: the bf16
 # kernels take W and the entering state as bf16 pairs there (csrc/ssd_scan.cu)
 SSD_RISING = (2, 512, 4, 64, 128, 256, torch.bfloat16)
+# the bf16 backward kernels against ref.ssd_scan_bwd_ref in float32 on the
+# same bf16 inputs: the path, the mamba2-130m training cell's call (B 24), da >
+# 0 on every second head, da = -2 everywhere (exp of the segment sums above
+# the diagonal overflows: the gradients stay finite), P and N zero-padded
+# (TMA) and staged by threads
+SSD_BWD_SHAPES = {
+    # name: (B, S, nh, P, N, chunk, decay: None, "rising" or "steep")
+    "path": (8, 2048, 24, 64, 128, 256, None),
+    "cell": (24, 2048, 24, 64, 128, 256, None),
+    "rising": (2, 512, 4, 64, 128, 256, "rising"),
+    "steep": (1, 512, 2, 64, 128, 256, "steep"),
+    "ragged": (2, 192, 3, 40, 24, 64, None),
+    "threads": (1, 192, 2, 33, 20, 96, None),
+}
+# the largest error over the largest magnitude of the reference's output:
+# dx, dB and dC are rounded once to bf16 (2^-8 relative) after sums of
+# products whose rounded operands (W, the entering state, as the forward
+# takes them) add about as much; ddt and dA are float32 sums of those
+# (sound runs: dx, dB, dC up to 4.9e-3, ddt 3.7e-4, dA 1.9e-3)
+SSD_BWD_TOL = {"dx": 1e-2, "ddt": 2e-3, "dA": 5e-3, "dB": 1e-2, "dC": 1e-2}
 
 
 def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS_PER_S) -> dict:
@@ -1192,6 +1222,111 @@ def ssd_inputs(B, S, nh, P, N, dtype, seed):
     dt = torch.nn.functional.softplus(randn(B, S, nh)) * 0.1
     A = -torch.exp(randn(nh) * 0.5)
     return x, dt, A, (randn(B, S, N) * 0.3).to(dtype), (randn(B, S, N) * 0.3).to(dtype)
+
+
+def ssd_bwd_work(B, S, nh, P, N, chunk) -> dict:
+    """FLOPs and bytes of one bf16 backward call, the benchmark's count: the
+    ``work`` of ``bench/metrics/ssd_bwd_roofline.train.py``, which
+    ``ssd_bwd_roofline.train`` reads, loaded from its file so that the two
+    cannot drift apart."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "bench" / "metrics" / "ssd_bwd_roofline.train.py"
+    spec = importlib.util.spec_from_file_location("ssd_bwd_roofline_train", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, str(path.parents[2]))  # its ``bench.work`` imports
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(str(path.parents[2]))
+    flops, nbytes, _ = mod.work(B, S, nh, P, N, chunk, "bfloat16")
+    return bound(flops, nbytes, BF16_FLOPS_PER_S)
+
+
+def ssd_bwd_check(ssd) -> dict:
+    """The bf16 backward kernels (``kernel.ssd_scan_bwd_cuda``) against
+    ``ref.ssd_scan_bwd_ref`` in float32 on the same bf16 inputs, with and
+    without the final state's cotangent, at ``SSD_BWD_SHAPES`` within
+    ``SSD_BWD_TOL``; two calls give the same bits.  At the path: its time,
+    each kernel's, the plain vjp's (the vjp of ``ssd_chunked``) and the bound."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
+    from repro_torch.model.ssm import ssd_chunked
+
+    check_ptxas(ssd.BUILD_LOG, "ssd_bwd", lambda fn: True)
+    # each entry refuses the other's layout of x, in its own check
+    x, dt, A, B_, C_ = ssd_inputs(1, 64, 2, 16, 16, torch.bfloat16, 399)
+    dtf = dt.transpose(1, 2).reshape(2, 64).contiguous()
+    for what, call in (
+            ("forward", lambda: ssd.ssd_scan_cuda(x, dtf, dtf * A[:, None], B_, C_, nheads=2,
+                                                  chunk=64)),
+            ("backward", lambda: ssd.ssd_scan_bwd_cuda(
+                x.transpose(1, 2).reshape(2, 64, 16).contiguous(), dtf, dtf * A[:, None], A,
+                B_, C_, x.transpose(1, 2).reshape(2, 64, 16).contiguous(), None, chunk=64))):
+        try:
+            call()
+            said = None
+        except ValueError as e:
+            said = str(e)
+        check(said is not None and "ssd_scan kernel: x is" in said,
+              f"ssd_scan {what}: the other entry's layout of x was not refused by its "
+              f"check ({said})")
+    rows = {}
+    for seed, (shape, (B, S, nh, P, N, chunk, decay)) in enumerate(SSD_BWD_SHAPES.items()):
+        x, dt, A, B_, C_ = ssd_inputs(B, S, nh, P, N, torch.bfloat16, 400 + seed)
+        if decay == "rising":
+            A = torch.where(torch.arange(nh, device="cuda") % 2 == 1, -0.05 * A, A)
+        elif decay == "steep":
+            dt, A = torch.full_like(dt, 0.5), torch.full_like(A, -4.0)
+        g = torch.Generator(device="cuda").manual_seed(500 + seed)
+        dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
+        daf = dtf * A.repeat(B)[:, None]
+        dy = torch.randn(B, S, nh, P, generator=g, device="cuda").to(torch.bfloat16)
+        ds = torch.randn(B * nh, P, N, generator=g, device="cuda")
+        row = dict(shape=shape, B=B, S=S, nh=nh, P=P, N=N, chunk=chunk,
+                   plan=[st.grid for st in ssd.ssd_bwd_plan(B * nh, S, P, N, nh, chunk).stages])
+
+        def bh(t):  # (B, S, nh, P) -> (B nh, S, P), float32
+            return t.float().transpose(1, 2).reshape(B * nh, S, P)
+
+        for dstate in (ds, None):
+            got = ssd.ssd_scan_bwd_cuda(x, dtf, daf, A, B_, C_, dy, dstate, chunk=chunk)
+            again = ssd.ssd_scan_bwd_cuda(x, dtf, daf, A, B_, C_, dy, dstate, chunk=chunk)
+            want = ssd_scan_bwd_ref(bh(x), dtf, A, B_.float(), C_.float(), bh(dy), dstate,
+                                    nheads=nh, chunk=chunk)
+            want = (want[0].reshape(B, nh, S, P).transpose(1, 2), *want[1:])
+            torch.cuda.synchronize()
+            tag = "dstate" if dstate is not None else "no_dstate"
+            errs = {}
+            for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+                errs[name] = max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                check(bool(torch.isfinite(a).all()),
+                      f"ssd_scan_bwd {shape} {tag}: non-finite kernel {name}")
+                check(errs[name] <= SSD_BWD_TOL[name],
+                      f"ssd_scan_bwd {shape} {tag}: kernel {name} off the plain version by "
+                      f"{errs[name]:.3g} of its largest value, over {SSD_BWD_TOL[name]}")
+            same = all(bits_equal(a, b) for a, b in zip(got, again))
+            check(same, f"ssd_scan_bwd {shape} {tag}: two calls differ in their bits")
+            row[tag] = dict(rel_err=errs, same_bits=same)
+            del got, again, want
+        if shape == "path":
+            def kern():
+                return ssd.ssd_scan_bwd_cuda(x, dtf, daf, A, B_, C_, dy, ds, chunk=chunk)
+
+            ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, B_, C_)]
+            gy, gs = dy, ds.reshape(B, nh, P, N)
+
+            def plain():
+                y, st = ssd_chunked(*ins, chunk)
+                return torch.autograd.grad((y, st), ins, (gy, gs))
+
+            stages = profile_window(kern, 5, match=tuple(
+                st.kernel for st in ssd.ssd_bwd_plan(B * nh, S, P, N, nh, chunk).stages))
+            row.update(ms=device_ms(kern, reps_for(kern)), plain_ms=queued_ms(plain, 3, spin_ms=80.0),
+                       stage_ms={k: v["ms_per_call"] for k, v in stages["matched"].items()},
+                       **ssd_bwd_work(B, S, nh, P, N, chunk))
+        rows[shape] = row
+        print("  " + json.dumps({"ssd_scan_bwd": row}), flush=True)
+    return rows
 
 
 def phase_norm_ssd():
@@ -1322,7 +1457,7 @@ def phase_norm_ssd():
         max_abs_y=float(y_p.float().abs().max()), max_abs_err_state=max_err(st_k, st_p),
         a_cs_rise_per_chunk=float(daf.reshape(B * nh, -1, min(chunk, S)).sum(-1).max()))}),
         flush=True)
-    return norm_rows, ssd_rows
+    return norm_rows, ssd_rows, ssd_bwd_check(ssd)
 
 
 # ---------------------------------------------------------------------------
@@ -2899,15 +3034,17 @@ GMM_FWD_SHAPES = (("gate_up", 1408), ("down", 2048))  # f of the forward product
 
 def train_counts() -> dict:
     from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.ssd_scan import kernel as ssd
 
-    return {**lm_counts(), "moe_gmm_dx": gmm.DX_LAUNCHES}
+    return {**lm_counts(), "moe_gmm_dx": gmm.DX_LAUNCHES, "ssd_scan_bwd": ssd.BWD_LAUNCHES}
 
 
 def zero_train_counts() -> None:
     from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.ssd_scan import kernel as ssd
 
     zero_lm_counts()
-    gmm.DX_LAUNCHES = 0
+    gmm.DX_LAUNCHES = ssd.BWD_LAUNCHES = 0
 
 
 def loss_and_grads(params, cfg, batch) -> dict:
@@ -2978,9 +3115,9 @@ def backward_pieces(arch: str, cfg, B: int, S: int) -> dict:
     the SSD scan's forward kernel and the grouped matmul's pieces (its
     forward kernel, the transposed weight copy, the dx kernel and the
     float32-accumulated dW ``bmm``, for the gate/up and the down products)
-    from CUDA events around a CUDA graph's replays; the SSD backward (the
-    vjp of ``ssd_chunked``, recomputed: hundreds of plain kernels) on the
-    device behind a spin kernel (``queued_ms``), and a call's wall time
+    from CUDA events around a CUDA graph's replays; the SSD backward (its
+    kernels, on these bf16 tensors) on the device behind a spin kernel
+    (``queued_ms``), and a call's wall time
     back to back from Python.  Beside them, each branch that runs only on
     the card, at these shapes, against its float32 product (``gaps``, the
     relative norm gap, held to ``PIECE_TOL``): the LM head's forward
@@ -3058,7 +3195,7 @@ def phase_train_kernels() -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import MIXER_ATTN
+    from repro_torch.configs.base import MIXER_ATTN, MIXER_SSM
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.steps import make_train_step
     from repro_torch.model import lm
@@ -3128,6 +3265,10 @@ def phase_train_kernels() -> dict:
               f"{arch} train: {name} launches forward {k['forward'][name]} backward "
               f"{k['backward'][name]}")
         check(k["forward"]["rmsnorm"] > 0, f"{arch} train: rmsnorm never launched")
+        ssd_layers = sum(cfg.block_kind(i).mixer == MIXER_SSM for i in range(cfg.num_layers))
+        check(k["backward"]["ssd_scan_bwd"] == ssd_layers and k["forward"]["ssd_scan_bwd"] == 0,
+              f"{arch} train: ssd_scan backward launches forward {k['forward']['ssd_scan_bwd']} "
+              f"backward {k['backward']['ssd_scan_bwd']}, expected 0 and {ssd_layers}")
         if cfg.moe:
             check(k["backward"]["moe_gmm_dx"] > 0 and k["forward"]["moe_gmm_dx"] == 0,
                   f"{arch} train: moe_gmm dx launches {k['backward']['moe_gmm_dx']}")
@@ -3972,7 +4113,7 @@ def main() -> int:
     launches = timed(phase_e2e, NETWORKS)
     flash_rows = timed(phase_flash)
     train = timed(phase_train)
-    norm_rows, ssd_rows = timed(phase_norm_ssd)
+    norm_rows, ssd_rows, ssd_bwd_rows = timed(phase_norm_ssd)
     serve = timed(phase_serve)
     gmm_rows = timed(phase_gmm)
     moe = timed(phase_moe_serve)
@@ -4095,6 +4236,21 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"], design=designs[name],
             **extra,
         ))
+    row = ssd_bwd_rows["path"]
+    record["kernels"].append(dict(
+        name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="none (JAX differentiates ssd_chunked)",
+        launches=train_kernels["mamba2-130m"]["launches"]["ssd_scan_bwd"],
+        max_rel_err=max(e for r in ssd_bwd_rows.values() for tag in ("dstate", "no_dstate")
+                        for e in r[tag]["rel_err"].values()),
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None, kernels_per_call=len(row["stage_ms"]),
+        design="bf16: 5 kernels a call (chunk states and their cotangents as forward stage 1; "
+               "the reverse state pass in float32; dx, dB with every head of a batch row in "
+               "one block; dC likewise; a_cs's cotangent through the cumsum's reverse to ddt, "
+               "dA's parts) on wgmma, TMA and an mbarrier ring; no atomics",
+        launches_by_path=dict(train=train_path("mamba2-130m", "ssd_scan_bwd")),
+    ))
     row = gmm_rows["prefill"]
     record["kernels"].append(dict(
         name="moe_gmm", route="cuda", source="src/repro_torch/csrc/moe_gmm.cu",

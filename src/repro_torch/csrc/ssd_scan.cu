@@ -118,6 +118,90 @@
 // expf; y_inter is scaled in float32 before W x is added, and y is rounded
 // once to bf16.  The cumsum runs in another order than the reference's,
 // once, and every stage reads it.
+//
+// Backward (bfloat16; the reference has none: JAX differentiates its plain
+// chunked scan).  From y's cotangent dy and the final state's (or zero) it
+// gives dx, ddt, dA, dB and dC.  Per chunk, with H the state entering it, D
+// the cotangent of the state leaving it, G = C B^T, W = G o L o dt, dW = dy
+// x^T and dS = dW o L o dt:
+//   dx = W^T dy + s o (B D^T)                 s = exp(a_last - a_cs) * dt
+//   dB = sum_h [dS^T C + s o (x D)]           dC = sum_h [dS B + exp(a_cs) o (dy H)]
+//   D_{c-1} = D_c exp(a_last_c) + E_c         E_c = (dy o exp(a_cs))^T C
+// and a_cs's cotangent: sum_k dW o W - sum_q dW o W (L's), exp(a_cs) sum_n C
+// o (dy H) (y's carried part), -Z s with Z = sum_p x o (B D^T) (s's), and at
+// the chunk's last position sum_k Z s and exp(a_last) sum(H o D); reversed
+// through the cumsum it is da's, whence ddt = d(da) A + sum_q dW o G o L + Z
+// exp(a_last - a_cs) and dA = sum d(da) dt.  What bounds it: at the training
+// cell's call (B = 24, S = 2048, nh = 24, P = 64, N = 128, Q = 256) x, dy, dt,
+// B, C in and dx, ddt, dB, dC out are 513 MB, 153 us at the HBM rate; the
+// products it needs once (the causal halves of C B^T, dS B, dS^T C per batch
+// row and of dy x^T, W^T dy per row, five Q x P x N products per row) are
+// 1.4e11 FLOP, 142 us on the bf16 tensor cores: bytes bound it, barely.
+// The design computes about six times those products (operands as pairs, G
+// and dW taken again where a kernel needs them) and moves about 3 GB, most
+// of it through L2: stage 2's float32 states, the key and query kernels'
+// loads of each head's tiles.
+//
+// Five kernels a call (ssd_bwd_plan in kernel.py), none of them the forward's:
+//   1. ssd_bwd_chunk_state_kernel, block (bh * chunks + c, 0 or 1), stage 1's
+//      code (chunk_state): a_cs, the rising flags and S_c as the forward
+//      takes them (bit for bit), and E_c, dy scaled by exp(a_cs) as the pair
+//      hi + lo, against C read MN-major.
+//   2. ssd_bwd_state_pass_kernel, four blocks a row bh, two float4s of the
+//      state a thread: back from the last chunk D_c (float32; written as the
+//      pair hi + lo for kernel 3), then forward over the chunks H_c, as stage
+//      2 passes it (its bf16 hi, and lo from the row's first rising chunk on,
+//      for kernel 4), and exp(a_last_c) sum(H_c o D_c) with D_c read back as
+//      its pair, summed over each block in a fixed order (kernel 5 adds the
+//      four blocks' parts in order).  H_c never goes to memory in float32.
+//   3. ssd_bwd_keys_kernel, block (b * chunks + c, key tile kt), 64 keys and
+//      every head of the batch row, the query tiles at or below the
+//      diagonal; TMA and a 2-slot mbarrier ring of each head's x, dy and D,
+//      issued by one thread once both warpgroups are done with the slot; the
+//      next head's scalars (a_cs, dt, the pair flag) load while a head
+//      computes.  x, dy and dx lie in the model's layout (B, S, nheads, P), so
+//      the call makes no transposed copies (rows_map: boxes of one head).
+//      Warpgroup 0: B D^T (keys x P, D as hi + lo), Z and dx = s o B D^T;
+//      per query tile G^T = B C^T and dW^T = x dy^T (wgmma, K-major both),
+//      W^T in registers as wgmma's A, dx += W^T dy (dy MN-major), the key's
+//      sum_q dW o G o L.  Warpgroup 1: dB += s o (x D) (D MN-major, hi + lo),
+//      then per query tile dW^T and dS^T as the pair hi + lo in registers,
+//      dB += dS^T C (C MN-major); dB is summed over the heads in registers and
+//      stored once.  Below the diagonal L = exp(a_q - a_k1) exp(a_k1 - a_k),
+//      k1 the key tile's last key (one exponential a query, a head, in shared
+//      memory, and one a key); on it L is a select before the exponential.
+//   4. ssd_bwd_queries_kernel, block (b * chunks + c, query tile, the most
+//      keys first), 64 queries and every head; the same ring of dy, x and H
+//      (hi, and lo where the pair is taken).  Warpgroup w takes dC's columns
+//      64 w ...: dy H (H MN-major), dC += exp(a_q) o dy H and its half of
+//      sum_n C o dy H; per key tile dW = dy x^T, dS as the pair hi + lo, dC +=
+//      dS B (B MN-major), issued with the next tile's products; warpgroup 0
+//      also G = C B^T, W as the forward forms it and sum_k dW o W.  dC is
+//      summed over the heads in registers and stored once.
+//   5. ssd_bwd_dda_kernel, block bh * chunks + c, a position a thread: a_cs's
+//      cotangent, its suffix sums (da's), ddt, and the chunk's part of dA;
+//      kernel.py sums the parts over batch rows and chunks.
+// Every sum runs in a fixed order (no atomics; the key and query blocks own
+// their rows of dB and dC), so one input gives the same bits on every run.
+// A wgmma's branch turns on the warpgroup index and the pair flag broadcast
+// from lane 0, which ptxas sees as warp-uniform.  The key and query kernels
+// avoid two slow forms: shared memory addressed through a pointer rounded as
+// an integer (align1024) is read generically (LD, not LDS; shared_align1024
+// keeps the address space), and a select around __expf can compile to a
+// branch that diverges within the warp on the diagonal tile (exp_where runs
+// the exponential on every lane).  Temporaries at the cell:
+// states and E_c (float32) 302 MB, H and D (bf16 hi, lo) 151 MB, and 14 MB
+// of per-position sums.
+//
+// Rounding points of the backward.  Products of bf16 operands go to the
+// tensor cores as they are: G, dW, B D^T's and x D's B, dy H's dy, C and B
+// against dS.  Rounded operands, each at most as the forward rounds its
+// counterpart: W to bf16 (the pair hi + lo in a chunk where a_cs has risen);
+// H to bf16 (a pair there too); dy * exp(a_cs), like x * s, to the pair hi +
+// lo.  Float32 intermediates the forward never rounds go as pairs: D (B D^T,
+// x D) and dS (dS^T C, dS B).  The recurrence of D, Z, the L, dW o W and dW
+// o G o L sums, a_cs's cotangent and its suffix sums stay float32; dx, dB and
+// dC are rounded once to bf16.
 
 #include "hopper.cuh"
 
@@ -211,6 +295,11 @@ __device__ int chunk_cumsum(const float* __restrict__ da, int Q, float* acs, flo
   return up;
 }
 
+// offset of row bh = b nheads + h, position s, of a (B, S, nheads, P) tensor
+__device__ __forceinline__ size_t row_base(int bh, int s, int S, int P, int nheads) {
+  return (((size_t)(bh / nheads) * S + s) * nheads + bh % nheads) * P;
+}
+
 // v = hi + lo to about 16 bits, for two neighbouring values of a fragment
 __device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
@@ -218,20 +307,28 @@ __device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uin
   lo = pack_bf16(__fsub_rn(v0, __low2float(h)), __fsub_rn(v1, __high2float(h)));
 }
 
-// Stage 1.  Block bh * chunks + c: a_cs of the chunk, and its state
-// S_c = x^T (B * s) = (x * s)^T B with s = exp(a_last - a_cs) * dt.  TMA: x
-// and B arrive by TMA while the threads take the cumsum; else the threads
-// stage them element by element.  x~ = x * s is formed in registers as
-// wgmma's A fragments, a bf16 pair hi + lo; B is read MN-major as it lies.
-template <bool TMA>
-__global__ void __launch_bounds__(WG, 2)
-ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
-                       const bf16* __restrict__ x, const float* __restrict__ dt,
-                       const float* __restrict__ da, const bf16* __restrict__ Bm,
-                       float* __restrict__ acs_out, float* __restrict__ states,
-                       int* __restrict__ rising, int S, int P, int N, int nheads, int Q) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sx = align1024(smem_raw);
+// A chunk's state product, out = (v * s)^T M with s a scale per key: block
+// bh * chunks + c (one warpgroup) of stage 1, and of the backward's first
+// stage.  COT = false: v = x, M = B and s = exp(a_last - a_cs) * dt, the
+// chunk's state S_c; it writes a_cs and whether it rises.  COT = true: v =
+// dy, M = C and s = exp(a_cs), the cotangent y sends into the state entering
+// the chunk (csrc header note, backward).  TMA: v and M arrive by TMA while
+// the threads take the cumsum; else the threads stage them element by
+// element.  v~ = v * s is formed in registers as wgmma's A fragments, a bf16
+// pair hi + lo; M is read MN-major as it lies.  ROWS: v lies in the model's
+// layout (B, S, nheads, P) (rows_map), else (BH, S, P).  sx: the block's
+// shared memory at a 1024-byte boundary.
+template <bool TMA, bool COT, bool ROWS = false>
+__device__ __forceinline__ void chunk_state(unsigned char* sx, const CUtensorMap* tx,
+                                            const CUtensorMap* tb,
+                                            const bf16* __restrict__ x,
+                                            const float* __restrict__ dt,
+                                            const float* __restrict__ da,
+                                            const bf16* __restrict__ Bm,
+                                            float* __restrict__ acs_out,
+                                            float* __restrict__ states,
+                                            int* __restrict__ rising, int S, int P, int N,
+                                            int nheads, int Q) {
   unsigned char* sb = sx + S1_X;
   float* sacs = reinterpret_cast<float*>(sb + S1_B);
   float* sscale = sacs + QMAX;
@@ -248,22 +345,29 @@ ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar, 3 * KT * TILE);
     for (int kt = 0; kt < KT; ++kt) {
-      tma_load_3d(sx + kt * TILE, &tx, bar, 0, c * Q + 64 * kt, bh);
+      if (ROWS)
+        tma_load_3d(sx + kt * TILE, tx, bar, 0, bh % nheads, (bh / nheads) * S + c * Q + 64 * kt);
+      else
+        tma_load_3d(sx + kt * TILE, tx, bar, 0, c * Q + 64 * kt, bh);
       for (int j = 0; j < 2; ++j)
-        tma_load_3d(sb + j * QMAX * ROWB + kt * TILE, &tb, bar, 64 * j, c * Q + 64 * kt,
+        tma_load_3d(sb + j * QMAX * ROWB + kt * TILE, tb, bar, 64 * j, c * Q + 64 * kt,
                     bh / nheads);
     }
   }
 
   const int up = chunk_cumsum(da + row0, Q, sacs, ws);
   __syncthreads();
-  if (tid == 0) rising[blockIdx.x] = up;
+  if (!COT && tid == 0) rising[blockIdx.x] = up;
   const float a_last = sacs[Q - 1];
   for (int k = tid; k < QMAX; k += WG) {
     float s = 0.f;  // zero past the chunk: those rows of the tiles are the next chunk's
     if (k < Q) {
-      s = __fmul_rn(expf(a_last - sacs[k]), dt[row0 + k]);
-      acs_out[row0 + k] = sacs[k];
+      if constexpr (COT) {
+        s = expf(sacs[k]);
+      } else {
+        s = __fmul_rn(expf(a_last - sacs[k]), dt[row0 + k]);
+        acs_out[row0 + k] = sacs[k];
+      }
     }
     sscale[k] = s;
   }
@@ -271,7 +375,10 @@ ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
     __syncthreads();
     mbar_wait(bar, 0);
   } else {
-    stage_tile(sx, S1_X, 64 * KT, 1, x + row0 * P, P, Q, P, WG);
+    if (ROWS)
+      stage_tile(sx, S1_X, 64 * KT, 1, x + row_base(bh, c * Q, S, P, nheads), nheads * P, Q, P, WG);
+    else
+      stage_tile(sx, S1_X, 64 * KT, 1, x + row0 * P, P, Q, P, WG);
     stage_tile(sb, QMAX * ROWB, 64 * KT, 2, Bm + ((size_t)(bh / nheads) * S + (size_t)c * Q) * N,
                N, Q, N, WG);
     fence_async_shared();
@@ -326,6 +433,21 @@ ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_cons
     *reinterpret_cast<float2*>(out + (p0 + 8) * NP + col) =
         make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
+}
+
+// Stage 1.  Block bh * chunks + c: a_cs of the chunk, and its state
+// S_c = x^T (B * s) = (x * s)^T B with s = exp(a_last - a_cs) * dt
+// (chunk_state).
+template <bool TMA>
+__global__ void __launch_bounds__(WG, 2)
+ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                       const bf16* __restrict__ x, const float* __restrict__ dt,
+                       const float* __restrict__ da, const bf16* __restrict__ Bm,
+                       float* __restrict__ acs_out, float* __restrict__ states,
+                       int* __restrict__ rising, int S, int P, int N, int nheads, int Q) {
+  extern __shared__ unsigned char smem_raw[];
+  chunk_state<TMA, false>(align1024(smem_raw), &tx, &tb, x, dt, da, Bm, acs_out, states, rising,
+                          S, P, N, nheads, Q);
 }
 
 // the four values as bf16 pairs: hi = bf16(v) and lo = bf16(v - hi)
@@ -808,6 +930,894 @@ int launch_bf16(const void* x, const void* dt, const void* da, const void* B, co
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 backward: chunk states and cotangents, the reverse state pass,
+// the keys and the queries of each chunk, the cumsum's reverse
+// ---------------------------------------------------------------------------
+
+constexpr int BW_THREADS = 2 * WG;  // the key and query kernels: two warpgroups
+constexpr int BP_THREADS = 256;     // the reverse state pass: a quarter row a block
+constexpr int BP_SPLIT = 4;         // blocks of a row
+constexpr int BA_THREADS = 256;     // the cumsum's reverse: a chunk a block
+// keys: B (one key tile, two chunks), C (QMAX queries, two chunks) and NST
+// slots of x (the key tile), dy (QMAX queries) and D (hi and lo, two chunks
+// each); the head's exp(a_q - a_k1) and a_cs of the diagonal tile's
+// queries; three mbarriers
+constexpr int BK_B = 2 * TILE;
+constexpr int BK_C = 2 * QMAX * ROWB;
+constexpr int BW_SLOT = TILE + QMAX * ROWB + 4 * TILE;
+constexpr int BK_SMEM = 1024 + BK_B + BK_C + NST * BW_SLOT + QMAX * 4 + 64 * 4 + 24;
+// queries: C (one query tile, two chunks), B (QMAX keys, two chunks) and NST
+// slots of dy (the query tile), x (QMAX keys) and H (hi and lo); the head's
+// exp(a_k1 - a_k) * dt, warpgroup 1's half of y's share of d a_cs, a_cs and dt
+// of the diagonal tile's keys, a_k1 of the key tiles; three mbarriers
+constexpr int BQ_SMEM = 1024 + BK_B + BK_C + NST * BW_SLOT + QMAX * 4 + 64 * 4 + 2 * 64 * 4 +
+                        4 * 4 + 24;
+static_assert(BK_SMEM <= 232448 && BQ_SMEM <= 232448, "shared memory of a block");
+static_assert(QMAX == BW_THREADS, "a thread a query of the key kernel's exp(a_q - a_k1)");
+
+// the first 1024-byte boundary at or after p, a pointer into p's shared
+// memory: arithmetic on the pointer itself, so that the compiler keeps its
+// address space and reads and writes it as shared memory, not generically
+__device__ __forceinline__ unsigned char* shared_align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Backward stage 1.  Block (bh * chunks + c, 0): a_cs, the rising flag and
+// the chunk state S_c, as stage 1; block (bh * chunks + c, 1): E_c = (dy *
+// exp(a_cs))^T C, the cotangent that y sends into the state entering the chunk.
+// x and dy lie in the model's layout (B, S, nheads, P).
+template <bool TMA>
+__global__ void __launch_bounds__(WG, 2)
+ssd_bwd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tdy,
+                           const __grid_constant__ CUtensorMap tb,
+                           const __grid_constant__ CUtensorMap tc, const bf16* __restrict__ x,
+                           const bf16* __restrict__ dy, const float* __restrict__ dt,
+                           const float* __restrict__ da, const bf16* __restrict__ Bm,
+                           const bf16* __restrict__ Cm, float* __restrict__ acs_out,
+                           float* __restrict__ states, float* __restrict__ cot,
+                           int* __restrict__ rising, int S, int P, int N, int nheads, int Q) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sx = shared_align1024(smem_raw);
+  if (blockIdx.y == 0)
+    chunk_state<TMA, false, true>(sx, &tx, &tb, x, dt, da, Bm, acs_out, states, rising, S, P, N,
+                                  nheads, Q);
+  else
+    chunk_state<TMA, true, true>(sx, &tdy, &tc, dy, dt, da, Cm, acs_out, cot, rising, S, P, N,
+                                 nheads, Q);
+}
+
+// exp(v) where in, else 0, with no branch: the argument is selected before
+// the exponential (so that it is finite) and the result after it, and the
+// exponential (__expf's) runs on every lane: a branch around it would
+// diverge within the warp
+__device__ __forceinline__ float exp_where(bool in, float v) {
+  float e;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(in ? v * 1.4426950408889634f : 0.f));
+  return in ? e : 0.f;
+}
+
+// the first and second bf16 of a packed pair, as float32
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// the block's sum of v, in a fixed order (ws: 8 floats of shared memory)
+__device__ __forceinline__ float block_sum(float v, float* ws) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();  // the previous sum's readers are done
+  if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += ws[w];
+  return t;
+}
+
+// Backward stage 2.  Block (bh, quarter j), two float4s of the (64, 128)
+// state a thread.  Back from the last chunk: D_c, the cotangent of the state
+// leaving chunk c (D_last = the final state's cotangent, or zero; D_{c-1} =
+// D_c exp(a_last_c) + E_c, float32), as the bf16 pair hi + lo that the key
+// kernel takes.  Then forward over the chunks: H_c entering each chunk, as
+// stage 2 passes it (bf16 hi, and lo from the row's first rising chunk on,
+// for the query kernel), and the quarter's part of a_last's share
+// exp(a_last_c) sum(H_c o D_c), D_c read back as its pair.
+__global__ void __launch_bounds__(BP_THREADS)
+ssd_bwd_state_pass_kernel(const float* __restrict__ states, const float* __restrict__ cot,
+                          const float* __restrict__ acs, const int* __restrict__ rising,
+                          int* __restrict__ pairs, const float* __restrict__ dstate,
+                          bf16* __restrict__ rows4, float* __restrict__ dlast, int BH, int S,
+                          int P, int N, int Q) {
+  constexpr int V = PP * NP / 4;  // float4s of a state
+  constexpr int E = V / (BP_THREADS * BP_SPLIT);
+  __shared__ float ws[BP_THREADS / 32];
+  const int chunks = S / Q, bh = blockIdx.x, t = threadIdx.x + blockIdx.y * (V / BP_SPLIT);
+  const size_t lo_row = (size_t)BH * chunks;  // rows4: H hi, H lo, D hi, D lo
+  const float4* st = reinterpret_cast<const float4*>(states) + (size_t)bh * chunks * V;
+  const float4* ct = reinterpret_cast<const float4*>(cot) + (size_t)bh * chunks * V;
+  uint2* out = reinterpret_cast<uint2*>(rows4) + (size_t)bh * chunks * V;
+  const float* a_last = acs + (size_t)bh * S + Q - 1;
+  float4 g[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int e = t + j * BP_THREADS, p = e / (NP / 4), n = 4 * (e % (NP / 4));
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (dstate != nullptr && p < P)
+      for (int k = 0; k < 4; ++k)
+        if (n + k < N) v[k] = dstate[((size_t)bh * P + p) * N + n + k];
+    g[j] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  for (int c = chunks - 1; c >= 0; --c) {
+    const float d = expf(a_last[(size_t)c * Q]);
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const size_t i = (size_t)c * V + t + j * BP_THREADS;
+      uint2 hi, lo;
+      split4(g[j], hi, lo);
+      out[2 * lo_row * V + i] = hi;
+      out[3 * lo_row * V + i] = lo;
+      const float4 e = ct[i];
+      g[j].x = __fadd_rn(__fmul_rn(g[j].x, d), e.x);
+      g[j].y = __fadd_rn(__fmul_rn(g[j].y, d), e.y);
+      g[j].z = __fadd_rn(__fmul_rn(g[j].z, d), e.z);
+      g[j].w = __fadd_rn(__fmul_rn(g[j].w, d), e.w);
+    }
+  }
+  float4 h[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) h[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int pair = 0;
+  for (int c = 0; c < chunks; ++c) {
+    pair |= rising[(size_t)bh * chunks + c];
+    if (t == 0) pairs[(size_t)bh * chunks + c] = pair;  // the row's first thread
+    const float d = expf(a_last[(size_t)c * Q]);
+    float hd = 0.f;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const size_t i = (size_t)c * V + t + j * BP_THREADS;
+      const float4 sc = st[i];
+      const uint2 dh = out[2 * lo_row * V + i], dl = out[3 * lo_row * V + i];
+      uint2 hi, lo;
+      split4(h[j], hi, lo);
+      out[i] = hi;
+      if (pair) out[lo_row * V + i] = lo;
+      const float dv[4] = {bf_lo(dh.x) + bf_lo(dl.x), bf_hi(dh.x) + bf_hi(dl.x),
+                           bf_lo(dh.y) + bf_lo(dl.y), bf_hi(dh.y) + bf_hi(dl.y)};
+      hd = fmaf(h[j].x, dv[0], hd);
+      hd = fmaf(h[j].y, dv[1], hd);
+      hd = fmaf(h[j].z, dv[2], hd);
+      hd = fmaf(h[j].w, dv[3], hd);
+      h[j].x = __fadd_rn(__fmul_rn(h[j].x, d), sc.x);
+      h[j].y = __fadd_rn(__fmul_rn(h[j].y, d), sc.y);
+      h[j].z = __fadd_rn(__fmul_rn(h[j].z, d), sc.z);
+      h[j].w = __fadd_rn(__fmul_rn(h[j].w, d), sc.w);
+    }
+    hd = block_sum(hd, ws);
+    if (threadIdx.x == 0)
+      dlast[((size_t)bh * chunks + c) * BP_SPLIT + blockIdx.y] = __fmul_rn(d, hd);
+  }
+}
+
+struct BwdArgs {
+  const bf16* x;
+  const bf16* dy;
+  const float* dt;
+  const float* acs;
+  const bf16* Bm;
+  const bf16* Cm;
+  const bf16* rows4;  // (4, BH, chunks, 64, 128): H hi, H lo, D hi, D lo
+  const int* pairs;   // (bh, chunk): W and H as bf16 pairs (stage 2's)
+  bf16* dx;
+  bf16* dB;
+  bf16* dC;
+  float* Z;     // per key: sum_p x o (B D^T), s's cotangent
+  float* colT;  // per key: sum_q dW o G o L, dt's through W
+  float* dq;    // per query: sum_k dW o W + exp(a_q) sum_n C o (dy H)
+  int S, P, N, nheads, Q, lo_row;
+};
+
+// v0 + v1 over the four lanes of a quad (one accumulator row)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// two neighbouring values (r, col), (r, col + 1) of a row-major bf16 matrix
+// of leading dimension ld, those inside rows < nr and columns < nc
+__device__ __forceinline__ void store2(bf16* out, int ld, int r, int col, float v0, float v1,
+                                       int nr, int nc) {
+  if (r >= nr) return;
+  bf16* row = out + (size_t)r * ld;
+  if (col + 1 < nc && reinterpret_cast<uintptr_t>(row + col) % 4 == 0) {
+    *reinterpret_cast<uint32_t*>(row + col) = pack_bf16(v0, v1);
+  } else {
+    if (col < nc) row[col] = __float2bfloat16_rn(v0);
+    if (col + 1 < nc) row[col + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// a 64-row accumulator's rows r, r + 8 and columns 8 j + 2 tig (+1) as bf16
+template <int R>
+__device__ __forceinline__ void store_acc(bf16* out, int ld, const float (&d)[R], int r, int tig,
+                                          int nr, int nc) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    const int col = 8 * j + 2 * tig;
+    store2(out, ld, r, col, d[4 * j], d[4 * j + 1], nr, nc);
+    store2(out, ld, r + 8, col, d[4 * j + 2], d[4 * j + 3], nr, nc);
+  }
+}
+
+// Backward keys.  Block (b * chunks + c, key tile kt): for the 64 keys of the
+// tile and every head of the batch row, the query tiles kt ... QT - 1 (those
+// at or past the diagonal).  Warpgroup 0: G^T = B C^T and dW^T = x dy^T, dx
+// = s o (B D^T) + W^T dy, Z and the key's sum_q dW o G o L; warpgroup 1: dW^T
+// again, dS = dW o L o dt and dB = sum_h s o (x D) + dS^T C.
+template <bool TMA>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+ssd_bwd_keys_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
+                    const __grid_constant__ CUtensorMap tr, const BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sb = shared_align1024(smem_raw);  // key tile: chunk j at j TILE
+  unsigned char* sc = sb + BK_B;                   // queries: chunk j at j QMAX ROWB
+  unsigned char* ring = sc + BK_C;
+  float* sq = reinterpret_cast<float*>(ring + NST * BW_SLOT);  // exp(a_q - a_k1)
+  float* sdq = sq + QMAX;  // a_cs of the diagonal tile's queries
+  uint64_t* cb = reinterpret_cast<uint64_t*>(sdq + 64);
+  uint64_t* full = cb + 1;
+
+  // the warpgroup, broadcast from lane 0 so that ptxas sees a warp-uniform
+  // value: a branch around a wgmma it cannot prove uniform serialises them all
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / WG, 0);
+  const int chunks = a.S / a.Q, QT = (a.Q + 63) / 64;
+  const int b = blockIdx.x / chunks, c = blockIdx.x % chunks, kt = blockIdx.y;
+  const int crow = c * a.Q, k0 = 64 * kt;
+  const int bh0 = b * a.nheads;
+  const int ld = a.nheads * a.P;  // x, dy and dx: (B, S, nheads, P)
+
+  if (TMA && tid == 0) {
+    mbar_init(cb, 1);
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(cb, (2 + 2 * (QT - kt)) * TILE);
+    for (int j = 0; j < 2; ++j) {
+      tma_load_3d(sb + j * TILE, &tb, cb, 64 * j, crow + k0, b);
+      for (int qt = kt; qt < QT; ++qt)
+        tma_load_3d(sc + j * QMAX * ROWB + qt * TILE, &tc, cb, 64 * j, crow + 64 * qt, b);
+    }
+  }
+  // one thread issues a head's x, dy and D (hi and lo)
+  auto issue = [&](int i) {
+    const int s = i % NST, bh = bh0 + i;
+    unsigned char* slot = ring + s * BW_SLOT;
+    mbar_expect_tx(&full[s], (1 + (QT - kt) + 4) * TILE);
+    tma_load_3d(slot, &tx, &full[s], 0, i, b * a.S + crow + k0);
+    for (int qt = kt; qt < QT; ++qt)
+      tma_load_3d(slot + TILE + qt * TILE, &tdy, &full[s], 0, i, b * a.S + crow + 64 * qt);
+    for (int j = 0; j < 4; ++j)
+      tma_load_3d(slot + TILE + QMAX * ROWB + j * TILE, &tr, &full[s], 64 * (j & 1), 0,
+                  (2 + j / 2) * a.lo_row + bh * chunks + c);
+  };
+  if (TMA && tid == 0)
+    for (int i = 0; i < NST && i < a.nheads; ++i) issue(i);
+  __syncthreads();
+  if constexpr (TMA) {
+    mbar_wait(cb, 0);
+  } else {
+    stage_tile(sb, TILE, 64, 2, a.Bm + ((size_t)b * a.S + crow + k0) * a.N, a.N, a.Q - k0, a.N,
+               BW_THREADS);
+    stage_tile(sc, QMAX * ROWB, 64 * QT, 2, a.Cm + ((size_t)b * a.S + crow) * a.N, a.N, a.Q, a.N,
+               BW_THREADS);
+  }
+
+  const int warp = (tid / 32) % 4, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's rows r0, r0 + 8 of the key tile
+  const uint32_t b_addr = smem_u32(sb), c_addr = smem_u32(sc);
+  const int k1 = min(k0 + 63, a.Q - 1);  // the tile's last key
+  float dB[64];  // warpgroup 1: the batch row's dB over the heads
+  zero(dB);
+
+  // a head's scalars, loaded a head ahead so that their latency hides behind
+  // the previous head's work: a_k1, a_last, this thread's query (tid) of sq
+  // and (tid < 64) of the diagonal tile, its key rows' a_cs and dt, and the
+  // pair flag
+  float nk1 = 0.f, nlast = 0.f, naq = 0.f, ndq = 0.f, nar[2] = {0.f, 0.f}, ndr[2] = {0.f, 0.f};
+  int npair = 0;
+  auto fetch = [&](int bh) {
+    const size_t at = (size_t)bh * a.S + crow;
+    nk1 = a.acs[at + k1];
+    nlast = a.acs[at + a.Q - 1];
+    naq = tid < a.Q ? a.acs[at + tid] : 0.f;
+    ndq = tid < 64 && k0 + tid < a.Q ? a.acs[at + k0 + tid] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + r0 + 8 * h;
+      nar[h] = k < a.Q ? a.acs[at + k] : 0.f;
+      ndr[h] = k < a.Q ? a.dt[at + k] : 0.f;
+    }
+    npair = a.pairs[(size_t)bh * chunks + c];
+  };
+  fetch(bh0);
+
+  for (int i = 0; i < a.nheads; ++i) {
+    const int s = TMA ? i % NST : 0;
+    const int bh = bh0 + i;
+    unsigned char* slot = ring + s * BW_SLOT;
+    const float ak1 = nk1, a_last = nlast;
+    const float ar[2] = {nar[0], nar[1]}, dr[2] = {ndr[0], ndr[1]};
+    sq[tid] = tid < a.Q ? expf(naq - ak1) : 0.f;  // QMAX == BW_THREADS queries
+    if (tid < 64) sdq[tid] = ndq;
+    // broadcast from lane 0: ptxas sees a warp-uniform flag (a branch around
+    // a wgmma that it cannot prove uniform serialises every wgmma)
+    const int pair = __shfl_sync(0xffffffffu, npair, 0);
+    if (i + 1 < a.nheads) fetch(bh + 1);
+    if constexpr (!TMA) {
+      stage_tile(slot, TILE, 64, 1, a.x + row_base(bh, crow + k0, a.S, a.P, a.nheads), ld,
+                 a.Q - k0, a.P, BW_THREADS);
+      stage_tile(slot + TILE, QMAX * ROWB, 64 * QT, 1, a.dy + row_base(bh, crow, a.S, a.P, a.nheads),
+                 ld, a.Q, a.P, BW_THREADS);
+      for (int j = 0; j < 2; ++j)  // D hi, D lo
+        stage_tile(slot + TILE + QMAX * ROWB + 2 * j * TILE, TILE, 64, 2,
+                   a.rows4 + ((size_t)(2 + j) * a.lo_row + (size_t)bh * chunks + c) * (PP * NP),
+                   NP, PP, NP, BW_THREADS);
+      fence_async_shared();
+    }
+    __syncthreads();
+    if constexpr (TMA) mbar_wait(&full[s], (i / NST) & 1);
+    const uint32_t x_addr = smem_u32(slot), dy_addr = x_addr + TILE;
+    const uint32_t dh_addr = dy_addr + QMAX * ROWB, dl_addr = dh_addr + 2 * TILE;
+
+    // the rows' s = exp(a_last - a_cs) * dt and exp(a_k1 - a_cs)
+    float sr[2], rk[2], rkd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = k0 + r0 + 8 * h < a.Q;
+      sr[h] = in ? __fmul_rn(expf(a_last - ar[h]), dr[h]) : 0.f;
+      rk[h] = in ? expf(ak1 - ar[h]) : 0.f;
+      rkd[h] = __fmul_rn(rk[h], dr[h]);
+    }
+
+    if (wg == 0) {
+      // B D^T (keys x P) with D as hi + lo; Z = sum_p x o B D^T; dx = s o B D^T
+      float dx[32];
+      zero(dx);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP / 16; ++kk) {
+        wgmma_ss<0>(dx, desc_kmajor<ROWB, 64>(b_addr, 0, kk), desc_kmajor<ROWB, 64>(dh_addr, 0, kk), 1);
+        wgmma_ss<0>(dx, desc_kmajor<ROWB, 64>(b_addr, 0, kk), desc_kmajor<ROWB, 64>(dl_addr, 0, kk), 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      hold(dx);
+      float z[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = dx[4 * j + 2 * h + e];
+            const float xv = __bfloat162float(
+                *reinterpret_cast<const bf16*>(slot + swz(r0 + 8 * h, 8 * j + 2 * tig + e)));
+            z[h] = fmaf(xv, v, z[h]);
+            v = __fmul_rn(v, sr[h]);
+          }
+      float ct[2] = {0.f, 0.f};
+      for (int qt = kt; qt < QT; ++qt) {
+        float gt[32], dw[32];
+        zero(gt);
+        zero(dw);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < NP / 16; ++kk)
+          wgmma_ss<0>(gt, desc_kmajor<ROWB, 64>(b_addr, 0, kk),
+                      desc_kmajor<ROWB, QMAX>(c_addr, 64 * qt, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0>(dw, desc_kmajor<ROWB, 64>(x_addr, 0, kk),
+                      desc_kmajor<ROWB, QMAX>(dy_addr, 64 * qt, kk), 1);
+        wg_commit();
+        wg_wait<0>();
+        hold(gt);
+        hold(dw);
+        // W^T = G^T o L^T o dt_k (rounded as the forward rounds W) and the
+        // column sums of dW o G o L
+        float w[32];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int idx = 4 * j + 2 * h + e, q = 64 * qt + 8 * j + 2 * tig + e;
+              const int k = k0 + r0 + 8 * h;
+              float lq, m1, m2;
+              if (qt > kt) {  // every q > k: L = exp(a_q - a_k1) exp(a_k1 - a_k)
+                lq = sq[q];
+                m1 = rkd[h];
+                m2 = rk[h];
+              } else {
+                lq = exp_where(q >= k && q < a.Q, sdq[q - k0] - ar[h]);
+                m1 = dr[h];
+                m2 = 1.f;
+              }
+              w[idx] = __fmul_rn(__fmul_rn(gt[idx], lq), m1);
+              const float u = __fmul_rn(dw[idx], lq);
+              ct[h] = fmaf(__fmul_rn(u, gt[idx]), m2, ct[h]);
+            }
+        uint32_t wh[4][4], wl[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            split_pair(w[8 * kk + 2 * f], w[8 * kk + 2 * f + 1], wh[kk][f], wl[kk][f]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(dx, wh[kk], desc_mnmajor<ROWB, QMAX>(dy_addr, 4 * qt + kk), 1);
+        if (pair) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1>(dx, wl[kk], desc_mnmajor<ROWB, QMAX>(dy_addr, 4 * qt + kk), 1);
+        }
+        wg_commit();
+        wg_wait<0>();
+        hold(dx);
+      }
+      const size_t row = (size_t)bh * a.S + crow + k0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float zs = quad_sum(z[h]), cs = quad_sum(ct[h]);
+        if (tig == 0 && k0 + r0 + 8 * h < a.Q) {
+          a.Z[row + r0 + 8 * h] = zs;
+          a.colT[row + r0 + 8 * h] = cs;
+        }
+      }
+      store_acc(a.dx + row_base(bh, crow + k0, a.S, a.P, a.nheads), ld, dx, r0, tig, a.Q - k0,
+                a.P);
+    } else {
+      // sum_h s o (x D), D as hi + lo (keys x N)
+      float xd[64];
+      zero(xd);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss<1>(xd, desc_kmajor<ROWB, 64>(x_addr, 0, kk), desc_mnmajor<ROWB, 64>(dh_addr, kk), 1);
+        wgmma_ss<1>(xd, desc_kmajor<ROWB, 64>(x_addr, 0, kk), desc_mnmajor<ROWB, 64>(dl_addr, kk), 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      hold(xd);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        dB[4 * j] = fmaf(sr[0], xd[4 * j], dB[4 * j]);
+        dB[4 * j + 1] = fmaf(sr[0], xd[4 * j + 1], dB[4 * j + 1]);
+        dB[4 * j + 2] = fmaf(sr[1], xd[4 * j + 2], dB[4 * j + 2]);
+        dB[4 * j + 3] = fmaf(sr[1], xd[4 * j + 3], dB[4 * j + 3]);
+      }
+      for (int qt = kt; qt < QT; ++qt) {
+        float dw[32];
+        zero(dw);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0>(dw, desc_kmajor<ROWB, 64>(x_addr, 0, kk),
+                      desc_kmajor<ROWB, QMAX>(dy_addr, 64 * qt, kk), 1);
+        wg_commit();
+        wg_wait<0>();
+        hold(dw);
+        // dS^T = dW^T o L^T o dt_k as a bf16 pair
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int idx = 8 * kk + 2 * f + e;
+              const int j = idx / 4, h = (idx / 2) & 1;
+              const int q = 64 * qt + 8 * j + 2 * tig + e, k = k0 + r0 + 8 * h;
+              float lq, m1;
+              if (qt > kt) {
+                lq = sq[q];
+                m1 = rkd[h];
+              } else {
+                lq = exp_where(q >= k && q < a.Q, sdq[q - k0] - ar[h]);
+                m1 = dr[h];
+              }
+              v[e] = __fmul_rn(__fmul_rn(dw[idx], lq), m1);
+            }
+            split_pair(v[0], v[1], hi[kk][f], lo[kk][f]);
+          }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs<1>(dB, hi[kk], desc_mnmajor<ROWB, QMAX>(c_addr, 4 * qt + kk), 1);
+          wgmma_rs<1>(dB, lo[kk], desc_mnmajor<ROWB, QMAX>(c_addr, 4 * qt + kk), 1);
+        }
+        wg_commit();
+        wg_wait<0>();
+        hold(dB);
+      }
+    }
+    __syncthreads();  // both warpgroups are done with the slot and sq
+    if (TMA && tid == 0 && i + NST < a.nheads) issue(i + NST);
+  }
+  if (wg == 1) store_acc(a.dB + ((size_t)b * a.S + crow + k0) * a.N, a.N, dB, r0, tig, a.Q - k0, a.N);
+}
+
+// Backward queries.  Block (b * chunks + c, query tile from the last): for the
+// 64 queries of the tile and every head of the batch row, the key tiles at
+// or below the diagonal.  Warpgroup w takes dC's columns [64 w, 64 w + 64):
+// dC = sum_h exp(a_q) (dy H) + dS B, H as the forward's stage 3 takes it
+// (bf16, or hi + lo where the pair is taken) and dS = dW o L o dt as a bf16
+// pair, dW = dy x^T; per query exp(a_q) sum_n C o (dy H), the two halves
+// summed by warpgroup 0, which also takes G = C B^T, W and sum_k dW o W.
+template <bool TMA>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+ssd_bwd_queries_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tdy,
+                       const __grid_constant__ CUtensorMap tb,
+                       const __grid_constant__ CUtensorMap tc,
+                       const __grid_constant__ CUtensorMap tr, const BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sc = shared_align1024(smem_raw);  // query tile: chunk j at j TILE
+  unsigned char* sb = sc + BK_B;                   // keys: chunk j at j QMAX ROWB
+  unsigned char* ring = sb + BK_C;
+  float* sck = reinterpret_cast<float*>(ring + NST * BW_SLOT);  // exp(a_k1 - a_k) * dt
+  float* sy = sck + QMAX;  // warpgroup 1's half of sum_n C o (dy H)
+  float* sdk = sy + 64;    // [2][64]: a_cs and dt of the diagonal tile's keys
+  float* sak1 = sdk + 2 * 64;  // a_k1 of the key tiles below the diagonal
+  uint64_t* cb = reinterpret_cast<uint64_t*>(sak1 + 4);
+  uint64_t* full = cb + 1;
+
+  // the warpgroup, broadcast from lane 0 so that ptxas sees a warp-uniform
+  // value: a branch around a wgmma it cannot prove uniform serialises them all
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / WG, 0);
+  const int chunks = a.S / a.Q, QT = (a.Q + 63) / 64;
+  const int b = blockIdx.x / chunks, c = blockIdx.x % chunks;
+  const int qt = QT - 1 - blockIdx.y, nk = qt + 1;  // the tiles with the most keys first
+  const int crow = c * a.Q, q0 = 64 * qt;
+  const int bh0 = b * a.nheads;
+  const int ld = a.nheads * a.P;  // x, dy and dx: (B, S, nheads, P)
+
+  if (TMA && tid == 0) {
+    mbar_init(cb, 1);
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(cb, (2 + 2 * nk) * TILE);
+    for (int j = 0; j < 2; ++j) {
+      tma_load_3d(sc + j * TILE, &tc, cb, 64 * j, crow + q0, b);
+      for (int kt = 0; kt < nk; ++kt)
+        tma_load_3d(sb + j * QMAX * ROWB + kt * TILE, &tb, cb, 64 * j, crow + 64 * kt, b);
+    }
+  }
+  // one thread issues a head's dy, x and H (hi, and lo where the pair is taken)
+  auto issue = [&](int i, int pair) {
+    const int s = i % NST, bh = bh0 + i;
+    unsigned char* slot = ring + s * BW_SLOT;
+    mbar_expect_tx(&full[s], (1 + nk + 2 + 2 * pair) * TILE);
+    tma_load_3d(slot, &tdy, &full[s], 0, i, b * a.S + crow + q0);
+    for (int kt = 0; kt < nk; ++kt)
+      tma_load_3d(slot + TILE + kt * TILE, &tx, &full[s], 0, i, b * a.S + crow + 64 * kt);
+    for (int j = 0; j < 2 + 2 * pair; ++j)
+      tma_load_3d(slot + TILE + QMAX * ROWB + j * TILE, &tr, &full[s], 64 * (j & 1), 0,
+                  (j / 2) * a.lo_row + bh * chunks + c);
+  };
+  if (TMA && tid == 0)
+    for (int i = 0; i < NST && i < a.nheads; ++i) issue(i, a.pairs[(size_t)(bh0 + i) * chunks + c]);
+  __syncthreads();
+  if constexpr (TMA) {
+    mbar_wait(cb, 0);
+  } else {
+    stage_tile(sc, TILE, 64, 2, a.Cm + ((size_t)b * a.S + crow + q0) * a.N, a.N, a.Q - q0, a.N,
+               BW_THREADS);
+    stage_tile(sb, QMAX * ROWB, 64 * nk, 2, a.Bm + ((size_t)b * a.S + crow) * a.N, a.N, a.Q, a.N,
+               BW_THREADS);
+  }
+
+  const int warp = (tid / 32) % 4, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's rows r0, r0 + 8 of the query tile
+  const uint32_t c_addr = smem_u32(sc), b_addr = smem_u32(sb);
+  float dC[32];  // this warpgroup's half of the batch row's dC over the heads
+  zero(dC);
+
+  // a head's scalars, loaded a head ahead so that their latency hides behind
+  // the previous head's work: this thread's key (tid < 64 nk) of sck and
+  // (tid < 64) of the diagonal tile, a_k1 of key tile tid (< qt), its query
+  // rows' a_cs, the pair flag, and (the issuing thread) the flag of the head
+  // its next loads are for
+  const bool key_in = tid < 64 * nk && tid < a.Q;
+  float nk1 = 0.f, nka = 0.f, nkd = 0.f, naq[2] = {0.f, 0.f}, nda = 0.f, ndd = 0.f, nt1 = 0.f;
+  int npair = 0, ipair = 0;
+  auto fetch = [&](int bh) {
+    const size_t at = (size_t)bh * a.S + crow;
+    if (key_in) {
+      nk1 = a.acs[at + min(tid | 63, a.Q - 1)];
+      nka = a.acs[at + tid];
+      nkd = a.dt[at + tid];
+    }
+    if (tid < 64 && q0 + tid < a.Q) {
+      nda = a.acs[at + q0 + tid];
+      ndd = a.dt[at + q0 + tid];
+    }
+    if (tid < qt) nt1 = a.acs[at + 64 * tid + 63];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + r0 + 8 * h;
+      naq[h] = q < a.Q ? a.acs[at + q] : 0.f;
+    }
+    npair = a.pairs[(size_t)bh * chunks + c];
+  };
+  fetch(bh0);
+
+  for (int i = 0; i < a.nheads; ++i) {
+    const int s = TMA ? i % NST : 0;
+    const int bh = bh0 + i;
+    unsigned char* slot = ring + s * BW_SLOT;
+    if (tid < 64 * nk)  // as the forward's stage 3 takes it
+      sck[tid] = key_in ? __fmul_rn(expf(nk1 - nka), nkd) : 0.f;
+    if (tid < 64) {
+      sdk[tid] = nda;
+      sdk[64 + tid] = ndd;
+    }
+    if (tid < qt) sak1[tid] = nt1;
+    const int pair = __shfl_sync(0xffffffffu, npair, 0);  // warp-uniform, as in the keys
+    const float aq[2] = {naq[0], naq[1]};
+    if (i + 1 < a.nheads) fetch(bh + 1);
+    if (TMA && tid == 0 && i + NST < a.nheads) ipair = a.pairs[(size_t)(bh + NST) * chunks + c];
+    if constexpr (!TMA) {
+      stage_tile(slot, TILE, 64, 1, a.dy + row_base(bh, crow + q0, a.S, a.P, a.nheads), ld,
+                 a.Q - q0, a.P, BW_THREADS);
+      stage_tile(slot + TILE, QMAX * ROWB, 64 * nk, 1, a.x + row_base(bh, crow, a.S, a.P, a.nheads),
+                 ld, a.Q, a.P, BW_THREADS);
+      for (int j = 0; j < 1 + pair; ++j)  // H hi, H lo
+        stage_tile(slot + TILE + QMAX * ROWB + 2 * j * TILE, TILE, 64, 2,
+                   a.rows4 + ((size_t)j * a.lo_row + (size_t)bh * chunks + c) * (PP * NP), NP,
+                   PP, NP, BW_THREADS);
+      fence_async_shared();
+    }
+    __syncthreads();
+    if constexpr (TMA) mbar_wait(&full[s], (i / NST) & 1);
+    const uint32_t dy_addr = smem_u32(slot), x_addr = dy_addr + TILE;
+    const uint32_t hh_addr = x_addr + QMAX * ROWB + wg * TILE, hl_addr = hh_addr + 2 * TILE;
+
+    float eq[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) eq[h] = q0 + r0 + 8 * h < a.Q ? expf(aq[h]) : 0.f;
+
+    // y's carried part: dy H over this warpgroup's columns of H
+    float yh[32];
+    zero(yh);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1>(yh, desc_kmajor<ROWB, 64>(dy_addr, 0, kk), desc_mnmajor<ROWB, 64>(hh_addr, kk), 1);
+    if (pair) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1>(yh, desc_kmajor<ROWB, 64>(dy_addr, 0, kk), desc_mnmajor<ROWB, 64>(hl_addr, kk),
+                    1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(yh);
+    float yq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = yh[4 * j + 2 * h + e];
+          const float cv = __bfloat162float(*reinterpret_cast<const bf16*>(
+              sc + wg * TILE + swz(r0 + 8 * h, 8 * j + 2 * tig + e)));
+          yq[h] = fmaf(cv, v, yq[h]);
+          dC[4 * j + 2 * h + e] = fmaf(eq[h], v, dC[4 * j + 2 * h + e]);
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      yq[h] = quad_sum(yq[h]);
+      if (wg == 1 && tig == 0) sy[r0 + 8 * h] = yq[h];
+    }
+
+    // the chunk's own part, key tile by key tile: dW = dy x^T (and, in
+    // warpgroup 0, which alone takes sum_k dW o W, G = C B^T) into fresh
+    // accumulators, W and dS as a bf16 pair from them, then dC += dS B
+    // issued with the next tile's products
+    float rr[2] = {0.f, 0.f};
+    float gq[32], dw[32];
+    auto products = [&](int kt) {
+      if (wg == 0) {
+#pragma unroll
+        for (int kk = 0; kk < NP / 16; ++kk)
+          wgmma_ss<0>(gq, desc_kmajor<ROWB, 64>(c_addr, 0, kk),
+                      desc_kmajor<ROWB, QMAX>(b_addr, 64 * kt, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0>(dw, desc_kmajor<ROWB, 64>(dy_addr, 0, kk),
+                    desc_kmajor<ROWB, QMAX>(x_addr, 64 * kt, kk), kk > 0);
+    };
+    wg_fence();
+    products(0);
+    wg_commit();
+    wg_wait<0>();
+    for (int kt = 0; kt < nk; ++kt) {
+      if (wg == 0) hold(gq);
+      hold(dw);
+      float rq[2];  // below the diagonal: exp(a_q - a_k1), k1 the key tile's last key
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        rq[h] = (kt < qt && q0 + r0 + 8 * h < a.Q) ? expf(aq[h] - sak1[kt]) : 0.f;
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 8 * kk + 2 * f + e;
+            const int j = idx / 4, h = (idx / 2) & 1;
+            const int k = 64 * kt + 8 * j + 2 * tig + e, q = q0 + r0 + 8 * h;
+            // below the diagonal (G * exp(a_q - a_k1)) * (exp(a_k1 - a_k) *
+            // dt), as the forward forms W; on it (G * L) * dt
+            const bool in = q >= k && q < a.Q;
+            const float l = kt < qt ? rq[h] : exp_where(in, aq[h] - sdk[k - q0]);
+            const float m = kt < qt ? sck[k] : in ? sdk[64 + k - q0] : 0.f;
+            v[e] = __fmul_rn(__fmul_rn(dw[idx], l), m);
+            if (wg == 0) rr[h] = fmaf(dw[idx], __fmul_rn(__fmul_rn(gq[idx], l), m), rr[h]);
+          }
+          split_pair(v[0], v[1], hi[kk][f], lo[kk][f]);
+        }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bd = desc_mnmajor<ROWB, QMAX>(b_addr + wg * QMAX * ROWB, 4 * kt + kk);
+        wgmma_rs<1>(dC, hi[kk], bd, 1);
+        wgmma_rs<1>(dC, lo[kk], bd, 1);
+      }
+      if (kt + 1 < nk) products(kt + 1);
+      wg_commit();
+      wg_wait<0>();
+    }
+    hold(dC);
+    const float rs[2] = {quad_sum(rr[0]), quad_sum(rr[1])};
+    __syncthreads();  // both halves of sy are written
+    if (wg == 0 && tig == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (q0 + r < a.Q)
+          a.dq[(size_t)bh * a.S + crow + q0 + r] = rs[h] + __fmul_rn(eq[h], yq[h] + sy[r]);
+      }
+    }
+    __syncthreads();  // both warpgroups are done with the slot, sck and sy
+    if (TMA && tid == 0 && i + NST < a.nheads) issue(i + NST, ipair);
+  }
+  store_acc(a.dC + ((size_t)b * a.S + crow + q0) * a.N + 64 * wg, a.N, dC, r0, tig, a.Q - q0,
+            a.N - 64 * wg);
+}
+
+// Backward stage 5.  Block bh * chunks + c, a thread a position t: a_cs's
+// cotangent d_a = dq - dt colT - Z s (and at the chunk's last position
+// a_last's shares: exp(a_last) sum(H o D) and sum_k Z s), then da's, the
+// suffix sums of d_a; dt's = d(da) A + colT + Z exp(a_last - a_cs), and this
+// chunk's part of A's, sum_t d(da) dt.  Every sum in a fixed order.
+__global__ void __launch_bounds__(BA_THREADS)
+ssd_bwd_dda_kernel(const float* __restrict__ acs, const float* __restrict__ dt,
+                   const float* __restrict__ A, const float* __restrict__ Z,
+                   const float* __restrict__ colT, const float* __restrict__ dq,
+                   const float* __restrict__ dlast, float* __restrict__ ddt,
+                   float* __restrict__ dA_part, int S, int nheads, int Q) {
+  __shared__ float ws[BA_THREADS / 32];
+  const int chunks = S / Q, bh = blockIdx.x / chunks, c = blockIdx.x % chunks;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t i = (size_t)bh * S + (size_t)c * Q + t;
+  const bool in = t < Q;
+  const float a_last = acs[(size_t)bh * S + (size_t)c * Q + Q - 1];
+  const float d = in ? dt[i] : 0.f;
+  const float to_end = in ? expf(a_last - acs[i]) : 0.f;
+  const float s = __fmul_rn(to_end, d);
+  const float z = in ? Z[i] : 0.f, ct = in ? colT[i] : 0.f;
+  const float zs = __fmul_rn(z, s);
+  const float zs_sum = block_sum(zs, ws);
+  float v = in ? dq[i] - __fmul_rn(d, ct) - zs : 0.f;
+  if (t == Q - 1) {  // a_last's shares: the state pass's quarters, in order, and Z s
+    const float* dl = dlast + (size_t)blockIdx.x * BP_SPLIT;
+    float last = 0.f;
+    for (int j = 0; j < BP_SPLIT; ++j) last += dl[j];
+    v += last + zs_sum;
+  }
+  // suffix sums: within the warp, then the later warps' totals
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float n = __shfl_down_sync(0xffffffffu, v, off);
+    if (lane + off < 32) v += n;
+  }
+  __syncthreads();
+  if (lane == 0) ws[warp] = v;
+  __syncthreads();
+  for (int w = BA_THREADS / 32 - 1; w > warp; --w) v += ws[w];
+  if (in) ddt[i] = fmaf(v, A[bh % nheads], ct + __fmul_rn(z, to_end));
+  const float part = block_sum(in ? __fmul_rn(v, d) : 0.f, ws);
+  if (t == 0) dA_part[blockIdx.x] = part;
+}
+
+// The tensor map of a (B, S, nheads, P) bf16 tensor, read in boxes of 64
+// positions of one head (dims (P, nheads, B S), box (64, 1, 64)): the same
+// 128-byte rows, swizzled at 128 B, as tensor_map_3d's boxes of (BH, S, P).
+int rows_map(CUtensorMap* map, const void* p, uint64_t P, uint64_t nheads, uint64_t rows) {
+  if (encode_tiled == nullptr) return (int)cudaErrorInitializationError;
+  const cuuint64_t dims[3] = {P, nheads, rows};
+  const cuuint64_t strides[2] = {P * 2, P * nheads * 2};
+  const cuuint32_t box[3] = {64, 1, 64};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                                  dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool TMA>
+int launch_bwd(void* const* p, int BH, int S, int P, int N, int nheads, int Q,
+               const dim3* grids, cudaStream_t st) {
+  const int chunks = S / Q, Bb = BH / nheads, lo_row = BH * chunks;
+  const bf16* x = static_cast<const bf16*>(p[0]);
+  const bf16* dy = static_cast<const bf16*>(p[1]);
+  const float* dt = static_cast<const float*>(p[2]);
+  const float* da = static_cast<const float*>(p[3]);
+  const float* A = static_cast<const float*>(p[4]);
+  const bf16* B = static_cast<const bf16*>(p[5]);
+  const bf16* C = static_cast<const bf16*>(p[6]);
+  const float* dstate = static_cast<const float*>(p[7]);
+  float* acs = static_cast<float*>(p[13]);
+  int* rising = static_cast<int*>(p[14]);
+  float* states = static_cast<float*>(p[15]);
+  float* cot = static_cast<float*>(p[16]);
+  bf16* rows4 = static_cast<bf16*>(p[17]);
+  float* Z = static_cast<float*>(p[18]);
+  float* colT = static_cast<float*>(p[19]);
+  float* dq = static_cast<float*>(p[20]);
+  float* dlast = static_cast<float*>(p[21]);
+  int* pairs = rising + lo_row;
+  CUtensorMap tx{}, tdy{}, tb{}, tc{}, tr{};
+  if (TMA) {
+    int err = rows_map(&tx, x, P, nheads, (uint64_t)Bb * S);
+    if (err == 0) err = rows_map(&tdy, dy, P, nheads, (uint64_t)Bb * S);
+    if (err == 0) err = tensor_map_3d(&tb, B, N, S, Bb, 64, 64);
+    if (err == 0) err = tensor_map_3d(&tc, C, N, S, Bb, 64, 64);
+    if (err == 0) err = tensor_map_3d(&tr, rows4, NP, PP, 4 * (uint64_t)lo_row, 64, 64);
+    if (err != 0) return err;
+  }
+  ssd_bwd_chunk_state_kernel<TMA><<<grids[0], WG, S1_SMEM, st>>>(
+      tx, tdy, tb, tc, x, dy, dt, da, B, C, acs, states, cot, rising, S, P, N, nheads, Q);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ssd_bwd_state_pass_kernel<<<grids[1], BP_THREADS, 0, st>>>(
+      states, cot, acs, rising, pairs, dstate, rows4, dlast, BH, S, P, N, Q);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const BwdArgs args{x, dy, dt, acs, B, C, rows4, pairs, static_cast<bf16*>(p[8]),
+                     static_cast<bf16*>(p[11]), static_cast<bf16*>(p[12]), Z, colT, dq,
+                     S, P, N, nheads, Q, lo_row};
+  ssd_bwd_keys_kernel<TMA><<<grids[2], BW_THREADS, BK_SMEM, st>>>(tx, tdy, tb, tc, tr, args);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ssd_bwd_queries_kernel<TMA><<<grids[3], BW_THREADS, BQ_SMEM, st>>>(tx, tdy, tb, tc, tr, args);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ssd_bwd_dda_kernel<<<grids[4], BA_THREADS, 0, st>>>(
+      acs, dt, A, Z, colT, dq, dlast, static_cast<float*>(p[9]), static_cast<float*>(p[10]), S,
+      nheads, Q);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // float32: the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -1057,12 +2067,18 @@ extern "C" {
 // Fetch the tensor-map encoder and lift the dynamic shared-memory limit of
 // every kernel on the current device.  Returns the CUDA error (0: done).
 int ssd_init() {
-  const int errs[6] = {load_encode_tiled(),
-                       set_smem(ssd_scan_f32_kernel, SMEM_BYTES),
-                       set_smem(ssd_chunk_state_kernel<true>, S1_SMEM),
-                       set_smem(ssd_chunk_state_kernel<false>, S1_SMEM),
-                       set_smem(ssd_chunk_out_kernel<true>, S3_SMEM),
-                       set_smem(ssd_chunk_out_kernel<false>, S3_SMEM)};
+  const int errs[12] = {load_encode_tiled(),
+                        set_smem(ssd_scan_f32_kernel, SMEM_BYTES),
+                        set_smem(ssd_chunk_state_kernel<true>, S1_SMEM),
+                        set_smem(ssd_chunk_state_kernel<false>, S1_SMEM),
+                        set_smem(ssd_chunk_out_kernel<true>, S3_SMEM),
+                        set_smem(ssd_chunk_out_kernel<false>, S3_SMEM),
+                        set_smem(ssd_bwd_chunk_state_kernel<true>, S1_SMEM),
+                        set_smem(ssd_bwd_chunk_state_kernel<false>, S1_SMEM),
+                        set_smem(ssd_bwd_keys_kernel<true>, BK_SMEM),
+                        set_smem(ssd_bwd_keys_kernel<false>, BK_SMEM),
+                        set_smem(ssd_bwd_queries_kernel<true>, BQ_SMEM),
+                        set_smem(ssd_bwd_queries_kernel<false>, BQ_SMEM)};
   for (int e : errs)
     if (e != 0) return e;
   return 0;
@@ -1109,6 +2125,28 @@ int ssd_scan_bf16_launch(const void* x, const void* dt, const void* da, const vo
                              P, N, nheads, Q, group, grids, st);
   return launch_bf16<false>(x, dt, da, B, C, y, state, acs, states, entering, rising, BH, S,
                             P, N, nheads, Q, group, grids, st);
+}
+
+// The bfloat16 backward: five kernels on the caller's tensors, 22 pointers
+// in p: x, dy (BH, S, P), dt, da (BH, S) float32, A (nheads) float32, B, C
+// (BH / nheads, S, N), the final state's cotangent (BH, P, N) float32 or null;
+// dx (BH, S, P), ddt (BH, S) float32, A's parts (BH, S / Q) float32, dB, dC;
+// the temporaries acs (BH, S) float32, rising (2, BH, S / Q) int32, states
+// and cot (BH, S / Q, 64, 128) float32, rows4 (4, BH, S / Q, 64, 128)
+// bfloat16 (H hi, H lo, D hi, D lo), Z, colT, dq (BH, S) float32 and dlast
+// (BH, S / Q) float32.  tma and plan as ssd_scan_bf16_launch's.  Returns the
+// CUDA error of the launches (0: launched).
+int ssd_scan_bwd_launch(void* const* p, int BH, int S, int P, int N, int nheads, int Q, int tma,
+                        const int* plan, void* stream) {
+  const int own[5][2] = {{WG, S1_SMEM}, {BP_THREADS, 0}, {BW_THREADS, BK_SMEM},
+                         {BW_THREADS, BQ_SMEM}, {BA_THREADS, 0}};
+  dim3 grids[5];
+  if (P > PP || N > NP || Q > QMAX || Q <= 0 || S % Q || !plan_grids(plan, 5, own, grids) ||
+      grids[1].y != BP_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tma) return launch_bwd<true>(p, BH, S, P, N, nheads, Q, grids, st);
+  return launch_bwd<false>(p, BH, S, P, N, nheads, Q, grids, st);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 """The SSD-scan kernels on the card: build, bind, plan, check, launch.
 
 Replaces the Pallas TPU kernel ``ssd_scan_fwd`` of ``repro/kernels/ssd_scan/
-kernel.py``.  The CUDA source is ``repro_torch/csrc/ssd_scan.cu``; its header
-note says what bounds the kernels and how the designs answer that.
+kernel.py``, and adds a backward the reference has not (JAX differentiates
+its plain ``ssd_chunked``).  The CUDA source is ``repro_torch/csrc/
+ssd_scan.cu``; its header note says what bounds the kernels and how the
+designs answer that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
@@ -23,6 +25,12 @@ note says what bounds the kernels and how the designs answer that.
   raises on a non-zero CUDA error.  ``LAUNCHES`` counts the calls that
   launch (three kernels a bfloat16 call, one a float32 call) and nothing
   else.
+* **Backward.**  ``ssd_scan_bwd_cuda`` takes the bfloat16 call's inputs, y's
+  cotangent and the final state's (or none), checks them as the forward
+  does, and launches the five kernels of ``ssd_bwd_plan`` (chunk states and
+  cotangents, the reverse state pass, the keys, the queries, the cumsum's
+  reverse), none of them the forward's.  ``BWD_LAUNCHES`` counts the calls
+  that launch.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 BUILD_SECONDS: Optional[float] = None
 BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
@@ -55,6 +64,11 @@ STAGE1_SMEM = 1024 + MAX_CHUNK * _ROWB + 2 * MAX_CHUNK * _ROWB + 2 * MAX_CHUNK *
 STAGE3_SMEM = (1024 + 4 * _TILE + 2 * MAX_CHUNK * _ROWB + 2 * (MAX_CHUNK * _ROWB + 2 * _TILE)
                + 3 * MAX_GROUP * MAX_CHUNK * 4 + 64)
 F32_SMEM = 4 * (64 * 129 + 64 * 129 + 64 * 64 + 64 * 65 + 64 * 129 + 2 * 256 + 8)
+# csrc/ssd_scan.cu BK_SMEM and BQ_SMEM, the backward's key and query kernels
+_BW_SLOT = _TILE + MAX_CHUNK * _ROWB + 4 * _TILE
+BWD_PASS_SPLIT = 4  # csrc/ssd_scan.cu BP_SPLIT: blocks of a row in the reverse state pass
+KEYS_SMEM = 1024 + 2 * _TILE + 2 * MAX_CHUNK * _ROWB + 2 * _BW_SLOT + MAX_CHUNK * 4 + 64 * 4 + 24
+QUERIES_SMEM = KEYS_SMEM + 2 * 64 * 4 + 4 * 4
 
 _lock = threading.Lock()
 _lib = None
@@ -119,6 +133,39 @@ def ssd_plan(BH: int, S: int, P: int, N: int, nheads: int, chunk: int, dtype: to
     return SsdPlan(Q, chunks, g, tma and P % 8 == 0 and N % 8 == 0, stages, temporaries)
 
 
+def ssd_bwd_plan(BH: int, S: int, P: int, N: int, nheads: int, chunk: int, *,
+                 tma: bool = True) -> SsdPlan:
+    """The five kernels of one bfloat16 backward call (csrc/ssd_scan.cu,
+    backward), a pure function of the shapes.  A key or query block takes
+    every head of its batch row, so dB and dC are summed over the heads in
+    its registers and no block adds to another's (the head group is
+    ``nheads``; the card's SM count does not enter)."""
+    Q = min(chunk, S)
+    chunks = S // Q
+    Bb = BH // nheads
+    qt = math.ceil(Q / 64)
+    stages = (
+        Stage("ssd_bwd_chunk_state_kernel", (BH * chunks, 2, 1), 128, STAGE1_SMEM),
+        Stage("ssd_bwd_state_pass_kernel", (BH, BWD_PASS_SPLIT, 1), 256, 0),
+        Stage("ssd_bwd_keys_kernel", (Bb * chunks, qt, 1), 256, KEYS_SMEM),
+        Stage("ssd_bwd_queries_kernel", (Bb * chunks, qt, 1), 256, QUERIES_SMEM),
+        Stage("ssd_bwd_dda_kernel", (BH * chunks, 1, 1), 256, 0),
+    )
+    pad = (BH, chunks, MAX_P, MAX_N)
+    temporaries = (
+        ("acs", (BH, S), torch.float32),
+        ("rising", (2, BH, chunks), torch.int32),  # stage 1's flags, stage 2's pairs
+        ("states", pad, torch.float32),  # S_c
+        ("cot", pad, torch.float32),     # E_c
+        ("rows4", (4, *pad), torch.bfloat16),  # H hi, H lo, D hi, D lo
+        ("Z", (BH, S), torch.float32),
+        ("colT", (BH, S), torch.float32),
+        ("dq", (BH, S), torch.float32),
+        ("dlast", (BH, chunks, BWD_PASS_SPLIT), torch.float32),
+    )
+    return SsdPlan(Q, chunks, nheads, tma and P % 8 == 0 and N % 8 == 0, stages, temporaries)
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per process and source) and load the kernel library."""
     global _lib, BUILD_SECONDS, BUILD_LOG
@@ -137,6 +184,9 @@ def build() -> ctypes.CDLL:
         # x dt da B C y state acs states entering rising | BH S P N nheads chunk
         # group tma | plan stream
         lib.ssd_scan_bf16_launch.argtypes = [p] * 11 + [i] * 8 + [p, p]
+        lib.ssd_scan_bwd_launch.restype = i
+        # pointers | BH S P N nheads chunk tma | plan stream
+        lib.ssd_scan_bwd_launch.argtypes = [p] + [i] * 7 + [p, p]
         _lib = lib
         return lib
 
@@ -154,17 +204,20 @@ def _library(dev: torch.device) -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(x, dt, da, B_, C_, nheads: int, chunk: int) -> int:
+def check_inputs(x, dt, da, B_, C_, nheads: int, chunk: int, *, rows: bool = False) -> int:
     """Validate what the kernel takes; returns the chunk length it runs.
-    Raises ``ValueError``."""
+    x is (BH, S, P) for the forward, and (B, S, nheads, P) with ``rows``
+    (the backward, which reads the model's layout).  Raises ``ValueError``."""
     if x.device.type != "cuda":
         raise ValueError(
             f"ssd_scan kernel: tensors must be CUDA tensors, got {x.device} (the plain "
             f"version is ref.ssd_scan_ref)"
         )
-    if x.dim() != 3 or B_.dim() != 3 or C_.dim() != 3:
-        raise ValueError("ssd_scan kernel: x is (BH, S, P), B and C are (B, S, N)")
-    BH, S, P = x.shape
+    layout = "(B, S, nheads, P)" if rows else "(BH, S, P)"
+    if x.dim() != (4 if rows else 3) or B_.dim() != 3 or C_.dim() != 3 or (
+            rows and x.shape[2] != nheads):
+        raise ValueError(f"ssd_scan kernel: x is {layout}, B and C are (B, S, N)")
+    BH, S, P = (x.shape[0] * nheads, x.shape[1], x.shape[3]) if rows else x.shape
     Bb, S_b, N = B_.shape
     if tuple(C_.shape) != (Bb, S_b, N) or S_b != S or Bb * nheads != BH:
         raise ValueError(
@@ -234,3 +287,51 @@ def ssd_scan_cuda(x, dt, da, B_, C_, *, nheads: int, chunk: int):
     with _lock:
         LAUNCHES += 1
     return y, state
+
+
+def ssd_scan_bwd_cuda(x, dt, da, A, B_, C_, dy, dstate, *, chunk: int):
+    """The cotangents of the bfloat16 scan's inputs from y's (``dy``) and the
+    final state's (``dstate`` (BH, P, N) float32, or ``None`` for zero).  x,
+    dy and the returned dx lie in the model's layout (B, S, nheads, P); dt
+    and ``da = dt * A`` as the forward took them, (BH, S) float32; A
+    (nheads,) float32.  Returns ``(dx, ddt (BH, S) float32, dA (nheads,)
+    float32, dB, dC (B, S, N))``: five kernels (``ssd_bwd_plan``); dA sums
+    their per-chunk parts in a fixed order."""
+    global BWD_LAUNCHES
+    if A.dim() != 1 or A.dtype != torch.float32 or not A.is_contiguous() or A.device != x.device:
+        raise ValueError("ssd_scan backward kernel: A must be a contiguous float32 (nheads,)")
+    nheads = A.shape[0]
+    Q = check_inputs(x, dt, da, B_, C_, nheads, chunk, rows=True)
+    Bb, S, _, P = x.shape
+    BH, N = Bb * nheads, B_.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan backward kernel: bfloat16 only, got {x.dtype}")
+    if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous() or dy.device != x.device:
+        raise ValueError(f"ssd_scan backward kernel: dy must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    if dstate is not None and (dstate.dtype != torch.float32 or dstate.shape != (BH, P, N)
+                               or not dstate.is_contiguous() or dstate.device != x.device):
+        raise ValueError(f"ssd_scan backward kernel: dstate must be a contiguous float32 "
+                         f"({BH}, {P}, {N}) or None")
+    lib = _library(x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, B_, C_))
+    plan = ssd_bwd_plan(BH, S, P, N, nheads, Q, tma=aligned)
+    dims = [n for st in plan.stages for n in (*st.grid, st.threads, st.smem)]
+    dims = (ctypes.c_int * len(dims))(*dims)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((BH, S), dtype=torch.float32, device=x.device)
+    parts = torch.empty((BH, plan.chunks), dtype=torch.float32, device=x.device)
+    dB, dC = torch.empty_like(B_), torch.empty_like(C_)
+    tmp = [torch.empty(shape, dtype=dtype, device=x.device)
+           for _, shape, dtype in plan.temporaries]
+    ptrs = [x, dy, dt, da, A, B_, C_, dstate, dx, ddt, parts, dB, dC, *tmp]
+    ptrs = (ctypes.c_void_p * len(ptrs))(*(None if t is None else t.data_ptr() for t in ptrs))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_launch(ptrs, BH, S, P, N, nheads, Q, int(plan.tma), dims, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
+    with _lock:
+        BWD_LAUNCHES += 1
+    dA = parts.view(Bb, nheads, plan.chunks).sum(dim=(0, 2))
+    return dx, ddt, dA, dB, dC

@@ -4,10 +4,12 @@
 heads into ``(B*nh, S, P)``, pre-scales ``da = dt * A`` and runs the chunked
 scan: the CUDA kernel (``kernel.py``) for CUDA tensors, which raises on what
 it does not take, and the plain version (``ref.ssd_scan_ref``) for CPU
-tensors; nothing falls back from one to the other.  The kernel is a forward,
-as the reference's is (no VJP); the SSM mixer trains through it with
-``model/ssm.py::SSDScan``, whose backward is the vjp of the plain
-``ssd_chunked`` (the reference's own backward).
+tensors; nothing falls back from one to the other.  The reference's kernel
+is a forward alone (JAX differentiates the plain ``ssd_chunked``); the SSM
+mixer trains through ``model/ssm.py::SSDScan``, whose backward on bfloat16
+CUDA tensors is :func:`ssd_scan_bwd`, the backward kernels
+(``kernel.ssd_scan_bwd_cuda``), and on the others the vjp of the plain
+``ssd_chunked``.
 
 On DTensors (:func:`on_shards`) batch and SSD heads may stay sharded; the
 sequence and the head dim are gathered first, and the inputs shared across a
@@ -67,3 +69,20 @@ def ssd_scan_local(
         y, state = ref.ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
     y = y.reshape(B, nh, S, P).transpose(1, 2)
     return y, state.reshape(B, nh, P, state.shape[-1])
+
+
+def ssd_scan_bwd(x, dt, A, B_, C_, gy, gstate, *, chunk: int):
+    """The cotangents of :func:`ssd_scan_local`'s inputs from y's (``gy``)
+    and the final state's (``gstate``; either may be ``None``, zero) through
+    the bfloat16 backward kernels (``kernel.ssd_scan_bwd_cuda``): ``(dx, ddt,
+    dA, dB, dC)`` in the inputs' layouts and dtypes.  x, y's cotangent and dx
+    stay in the model's layout; ``da`` is formed as the forward forms it."""
+    B, S, nh, P = x.shape
+    dtf = dt.transpose(1, 2).reshape(B * nh, S).to(torch.float32).contiguous()
+    Af = A.to(torch.float32).contiguous()
+    daf = dtf * Af.repeat(B)[:, None]
+    gy = torch.zeros_like(x) if gy is None else gy.to(x.dtype).contiguous()
+    gsf = None if gstate is None else gstate.reshape(B * nh, P, -1).to(torch.float32).contiguous()
+    dx, ddt, dA, dB, dC = kernel.ssd_scan_bwd_cuda(x.contiguous(), dtf, daf, Af, B_.contiguous(),
+                                                   C_.contiguous(), gy, gsf, chunk=chunk)
+    return dx, ddt.reshape(B, nh, S).transpose(1, 2).to(dt.dtype), dA.to(A.dtype), dB, dC

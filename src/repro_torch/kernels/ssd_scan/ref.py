@@ -12,6 +12,11 @@
   the bfloat16 CUDA kernels (chunk states, state passing, chunk outputs),
   optionally with operands rounded where the tensor cores take them; the
   CPU tests hold it to the JAX package.  Nothing on the main path calls it.
+* :func:`ssd_scan_bwd_ref` is the backward in the stages of the bfloat16
+  backward kernels (chunk states and the chunks' state cotangents, the
+  reverse state pass, the key and query sides of each chunk, the cumsum's
+  reverse); the CPU tests hold it in float64 to the vjp of
+  ``model/ssm.py::ssd_chunked`` and the card holds the kernels to it.
 
 Layout (the kernel's): x ``(BH, S, P)``; dt and ``da = dt * A`` ``(BH, S)``
 float32; B and C ``(B, S, N)``, shared by the ``nheads`` heads of a batch row
@@ -159,3 +164,103 @@ def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, da: torch.Tensor, B_: torc
     Ch = Cb.repeat_interleave(nheads, dim=0)
     y = torch.matmul(W, xf) + torch.matmul(Ch, H.transpose(2, 3)) * torch.exp(a_cs)[..., None]
     return y.reshape(BH, S, P).to(x.dtype), h
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+                     C_: torch.Tensor, dy: torch.Tensor, dstate, *, nheads: int, chunk: int):
+    """The vjp of :func:`ssd_scan_ref` (``da = dt * A`` of the row's head)
+    in the stages of the bfloat16 backward kernels, every chunk at once
+    where the kernels split by chunk.  ``dy`` (BH, S, P) is y's cotangent,
+    ``dstate`` (BH, P, N) the final state's or ``None`` (zero).  Float32
+    inside, float64 for float64 inputs.  Per chunk, with ``s = exp(a_last -
+    a_cs) * dt``, ``L`` the decay (a select before the exponential), ``G =
+    C B^T`` and ``W = G o L o dt``:
+
+    1. ``S_c = (x o s)^T B`` (the forward's chunk state) and ``E_c = (dy o
+       exp(a_cs))^T C``, the cotangent y sends into the entering state.
+    2. ``H_c`` entering each chunk, as the forward passes it; then from the
+       last chunk back ``D_c``, the cotangent of the state leaving chunk c:
+       ``D_last = dstate``, ``D_{c-1} = D_c exp(a_last_c) + E_c``; and
+       ``exp(a_last_c) sum(H_c o D_c)``, a_last's share of it.
+    3. Keys: ``dW = dy x^T``, ``dS = dW o L o dt`` summed over a batch
+       row's heads; ``dx = W^T dy + s o (B D^T)``, ``dB = sum_h dS^T C + s
+       o (x D)``; per key ``Z = sum_p x o (B D^T)`` (s's cotangent) and
+       ``sum_q dW o G o L`` (dt's through W).
+    4. Queries: ``dC = sum_h dS B + exp(a_cs) o (dy H)``; per query
+       ``sum_k dW o W + exp(a_cs) sum_n C o (dy H)`` (a_cs's through L and
+       y's carried part).
+    5. a_cs's cotangent, reversed through the cumsum into da's, then dt's
+       and A's.
+
+    Returns ``(dx in x.dtype, ddt float32 (BH, S), dA float32 (nheads,), dB,
+    dC in B's dtype)``."""
+    BH, S, P = x.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk {Q}")
+    nc, Bb = S // Q, BH // nheads
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(f32).reshape(BH, nc, Q, P)
+    dyf = dy.to(f32).reshape(BH, nc, Q, P)
+    dtf = dt.to(f32).reshape(BH, nc, Q)
+    Ah = A.to(f32).repeat(Bb)  # (BH,): the row's head
+    da = dt.to(f32) * Ah[:, None]
+    a_cs = torch.cumsum(da.reshape(BH, nc, Q), dim=2)
+    a_last = a_cs[..., -1]  # (BH, nc)
+    Bh = B_.to(f32).repeat_interleave(nheads, dim=0).reshape(BH, nc, Q, N)
+    Ch = C_.to(f32).repeat_interleave(nheads, dim=0).reshape(BH, nc, Q, N)
+    e_in = torch.exp(a_cs)  # exp(a_cs[q]): y's carried part
+    to_end = torch.exp(a_last[..., None] - a_cs)
+    s = to_end * dtf
+
+    # 1. the chunk states and the chunks' cotangents into the entering state
+    states = torch.matmul((xf * s[..., None]).transpose(2, 3), Bh)  # (BH, nc, P, N)
+    E = torch.matmul((dyf * e_in[..., None]).transpose(2, 3), Ch)
+
+    # 2. the entering states forward, their cotangents backward
+    h = torch.zeros((BH, P, N), dtype=f32, device=x.device)
+    H = []
+    for c in range(nc):
+        H.append(h)
+        h = h * torch.exp(a_last[:, c])[:, None, None] + states[:, c]
+    H = torch.stack(H, dim=1)
+    d = (torch.zeros_like(h) if dstate is None else dstate.to(f32))
+    D = [None] * nc
+    for c in reversed(range(nc)):
+        D[c] = d
+        d = d * torch.exp(a_last[:, c])[:, None, None] + E[:, c]
+    D = torch.stack(D, dim=1)
+    d_last = torch.exp(a_last) * (H * D).sum(dim=(2, 3))  # (BH, nc)
+
+    # 3. and 4. the chunk's products
+    rows = torch.arange(Q, device=x.device)
+    causal = rows[:, None] >= rows[None, :]
+    seg = a_cs[..., :, None] - a_cs[..., None, :]
+    L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)  # (BH, nc, Q, K)
+    G = torch.matmul(Ch, Bh.transpose(2, 3))
+    dW = torch.matmul(dyf, xf.transpose(2, 3))
+    dWL = dW * L
+    W = G * L * dtf[..., None, :]
+    dS = (dWL * dtf[..., None, :]).reshape(Bb, nheads, nc, Q, Q).sum(dim=1)
+    BD = torch.matmul(Bh, D.transpose(2, 3))  # (BH, nc, Q, P)
+    dx = torch.matmul(W.transpose(2, 3), dyf) + s[..., None] * BD
+    Z = (xf * BD).sum(dim=3)
+    colT = (dWL * G).sum(dim=2)  # per key
+    Bc = B_.to(f32).reshape(Bb, nc, Q, N)
+    Cc = C_.to(f32).reshape(Bb, nc, Q, N)
+    xD = (s[..., None] * torch.matmul(xf, D)).reshape(Bb, nheads, nc, Q, N).sum(dim=1)
+    dB = torch.matmul(dS.transpose(2, 3), Cc) + xD
+    dyH = e_in[..., None] * torch.matmul(dyf, H)  # (BH, nc, Q, N)
+    dC = torch.matmul(dS, Bc) + dyH.reshape(Bb, nheads, nc, Q, N).sum(dim=1)
+    dq = (dW * W).sum(dim=3) + (Ch * dyH).sum(dim=3)  # per query
+
+    # 5. a_cs's cotangent, then da's (the cumsum reversed), dt's and A's
+    zs = Z * s
+    d_a = dq - dtf * colT - zs
+    d_a[..., -1] += d_last + zs.sum(dim=2)
+    d_da = torch.flip(torch.cumsum(torch.flip(d_a, (2,)), dim=2), (2,))
+    ddt = d_da * Ah[:, None, None] + colT + Z * to_end
+    dA = (d_da * dtf).reshape(Bb, nheads, S).sum(dim=(0, 2))
+    return (dx.reshape(BH, S, P).to(x.dtype), ddt.reshape(BH, S), dA,
+            dB.reshape(Bb, S, N).to(B_.dtype), dC.reshape(Bb, S, N).to(C_.dtype))

@@ -10,8 +10,10 @@ carried state.  Decode is the exact single-step recurrence on the SSM state.
     exactly (its ``w.astype(xc.dtype)`` rounding included);
   * ``"cuda"`` — :class:`SSDScan`: the forward is ``kernels.ssd_scan.
     ssd_scan`` (the CUDA kernel on CUDA tensors, its plain version on CPU
-    tensors, never a fallback between them), the backward the vjp of
-    :func:`ssd_chunked`, as the reference's (it has no backward kernel).
+    tensors, never a fallback between them); the backward is the CUDA
+    backward kernels on bfloat16 CUDA tensors and the vjp of
+    :func:`ssd_chunked` (the reference's own backward: JAX differentiates it)
+    on the others.
 
 The gated norm runs through ``layers.rms_norm`` in the same mode.  The
 softplus of the step sizes is ``logaddexp(x, 0)``, the reference's
@@ -152,10 +154,13 @@ class SSDScan(torch.autograd.Function):
     """The chunked scan with ``state0 = None``, differentiable.  Forward:
     ``kernels.ssd_scan.ops.ssd_scan`` (the CUDA kernel on CUDA tensors,
     raising on what it does not take; its plain version on CPU tensors).
-    Backward: the vjp of :func:`ssd_chunked`, recomputed from the saved
-    inputs, which is the reference's own backward (JAX differentiates
-    ``ssd_chunked``); a ``None`` cotangent of the final state counts as
-    zero."""
+    Backward, recomputed from the saved inputs, by what they show: bfloat16
+    CUDA tensors take the backward kernels (``ops.ssd_scan_bwd``), which
+    raise on a shape the kernels do not take; CPU tensors, and float32 or
+    float64 CUDA tensors, take the vjp of :func:`ssd_chunked`, the
+    reference's own backward (float64 is what ``gradcheck`` needs; no cell
+    trains in float32).  Nothing falls back from one to the other.  A
+    ``None`` cotangent of the final state counts as zero."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_, C_, chunk: int):
@@ -168,12 +173,19 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstate):
+        from repro_torch.kernels.ssd_scan.ops import ssd_scan_bwd
+
+        saved = ctx.saved_tensors
+        if gy is None and gstate is None:
+            return (None,) * (len(saved) + 1)
+        if saved[0].is_cuda and saved[0].dtype == torch.bfloat16:
+            with span("ssd.backward"):
+                grads = ssd_scan_bwd(*saved, gy, gstate, chunk=ctx.chunk)
+            return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
         inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+                  for t, need in zip(saved, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         pairs = [(i, g) for i, g in enumerate((gy, gstate)) if g is not None]
-        if not pairs:
-            return (None,) * (len(inputs) + 1)
         with span("ssd.backward"), torch.enable_grad():
             outs = ssd_chunked(*inputs, ctx.chunk)
             grads = iter(torch.autograd.grad([outs[i] for i, _ in pairs], wanted,

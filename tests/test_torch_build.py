@@ -164,3 +164,28 @@ def test_chip_smoke_kernels_line_names_the_sharded_path():
     assert loop and all('sharded=sharded["launches"][name]' in seg for seg in loop)
     for name in ("moe_gmm", "quantize_int8"):
         assert any(f'sharded["launches"]["{name}"]' in seg for seg in sharded), name
+
+
+def test_chip_smoke_kernels_line_holds_the_ssd_backward():
+    """Phase 6 returns the SSD backward's rows apart from the forward's, so
+    that every forward row the kernels line reads is one of its shapes; they
+    feed an ``ssd_scan_bwd`` entry whose launches come from phase 14."""
+    import ast
+
+    main, text = _smoke_main()
+    (phase6,) = [n for n in ast.walk(main) if isinstance(n, ast.Assign)
+                 and "phase_norm_ssd" in ast.get_source_segment(text, n.value)]
+    assert [ast.get_source_segment(text, t) for t in phase6.targets[0].elts] == [
+        "norm_rows", "ssd_rows", "ssd_bwd_rows"]
+    (fn,) = [n for n in ast.parse(text).body
+             if isinstance(n, ast.FunctionDef) and n.name == "phase_norm_ssd"]
+    stores = [n for n in ast.walk(fn) if isinstance(n, ast.Assign)
+              and any(isinstance(t, ast.Subscript) and getattr(t.value, "id", None) == "ssd_rows"
+                      for t in n.targets)]
+    assert stores and all(getattr(n.value, "id", None) == "row" for n in stores)
+    entries = [n for n in ast.walk(main) if isinstance(n, ast.Call)
+               and any(kw.arg == "name" and getattr(kw.value, "value", None) == "ssd_scan_bwd"
+                       for kw in n.keywords)]
+    assert len(entries) == 1
+    seg = ast.get_source_segment(text, entries[0])
+    assert 'train_path("mamba2-130m", "ssd_scan_bwd")' in seg and "ssd_bwd_rows" in seg

@@ -8,6 +8,11 @@ package, on the CPU, where each kernel's wrapper runs its plain version.
   mode): the loss within 1e-5, every gradient within 2e-4, the tolerances of
   ``tests/test_torch_lm.py``.
 * ``torch.autograd.gradcheck`` in float64 of both Functions at tiny shapes.
+* ``ref.ssd_scan_bwd_ref``, the SSD backward kernels' stages in plain
+  PyTorch, in float64 against the vjp of ``ssd_chunked`` (the final state's
+  cotangent given and ``None``; P and N off 8; da > 0 in some chunks; a long
+  chunk, finite in float32 too); ``SSDScan``'s backward on CPU tensors is that
+  vjp, bit for bit, and launches nothing; ``kernel.ssd_bwd_plan``.
 * ``remat="save_dispatch"``: gradients bitwise equal to ``remat="block"``'s
   in the port, and within 2e-4 of the reference's ``save_dispatch``.
 * The LM head (``lm.head_logits``): on CPU tensors it is the float32 cast
@@ -34,6 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm.ops import GroupedMatmul
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
 from repro_torch.model import lm
 from repro_torch.model.attention import attention
 from repro_torch.model.convert import params_from_numpy
@@ -155,6 +161,105 @@ def test_ssd_chunked_grads_stay_finite_over_a_long_chunk():
     y, _ = SSDScan.apply(x, dt, A, B_, C_, 256)
     grads = torch.autograd.grad(y.square().sum(), (x, dt, A, B_, C_))
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+# (B, S, nh, P, N, chunk, rising): every second head's A > 0 makes da > 0
+SSD_BWD_CASES = {
+    "small": (2, 16, 3, 5, 6, 4, False),
+    "ragged": (1, 24, 2, 3, 5, 8, False),      # P, N not multiples of 8
+    "rising": (2, 32, 4, 8, 8, 8, True),
+    "long_chunk": (1, 256, 2, 4, 8, 256, False),
+}
+
+
+def _ssd_bwd_inputs(case, dtype, seed=21):
+    B, S, nh, P, N, chunk, rising = SSD_BWD_CASES[case]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(dtype)
+
+    x, Bm, Cm = t(B, S, nh, P), t(B, S, N), t(B, S, N)
+    if case == "long_chunk":  # the finite-gradient test's: segment sums overflow exp above it
+        dt, A = torch.full((B, S, nh), 0.5, dtype=dtype), torch.tensor([-4.0, -0.1], dtype=dtype)
+    else:
+        dt = torch.from_numpy(rng.uniform(0.05, 0.5, (B, S, nh))).to(dtype)
+        A = torch.from_numpy(rng.uniform(-2.0, -0.5, nh)).to(dtype)
+        if rising:
+            A[1::2] = 0.3
+    gy, gs = t(B, S, nh, P), t(B, nh, P, N)
+    return (x, dt, A, Bm, Cm), chunk, gy, gs
+
+
+def _fold_bwd_ref(ins, chunk, gy, gs):
+    """ssd_scan_bwd_ref in the kernel's layout, its cotangents in the model's."""
+    x, dt, A, Bm, Cm = ins
+    B, S, nh, P = x.shape
+    dx, ddt, dA, dB, dC = ssd_scan_bwd_ref(
+        x.transpose(1, 2).reshape(B * nh, S, P), dt.transpose(1, 2).reshape(B * nh, S), A, Bm,
+        Cm, gy.transpose(1, 2).reshape(B * nh, S, P),
+        None if gs is None else gs.reshape(B * nh, P, -1), nheads=nh, chunk=chunk)
+    return (dx.reshape(B, nh, S, P).transpose(1, 2), ddt.reshape(B, nh, S).transpose(1, 2), dA,
+            dB, dC)
+
+
+@pytest.mark.parametrize("with_state", [True, False], ids=["dstate", "no_dstate"])
+@pytest.mark.parametrize("case", list(SSD_BWD_CASES))
+def test_ssd_bwd_ref_is_the_vjp_of_ssd_chunked(case, with_state):
+    ins, chunk, gy, gs = _ssd_bwd_inputs(case, torch.float64)
+    gs = gs if with_state else None
+    ins = [t.requires_grad_() for t in ins]
+    y, st = ssd_chunked(*ins, chunk)
+    outs, cots = ((y, st), (gy, gs)) if with_state else ((y,), (gy,))
+    want = torch.autograd.grad(outs, ins, cots)
+    got = _fold_bwd_ref([t.detach() for t in ins], chunk, gy, gs)
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        torch.testing.assert_close(a, b, atol=1e-10, rtol=1e-10, msg=name)
+
+
+def test_ssd_bwd_ref_stays_finite_over_a_long_chunk_in_float32():
+    ins, chunk, gy, gs = _ssd_bwd_inputs("long_chunk", torch.float32)
+    got = _fold_bwd_ref(ins, chunk, gy, gs)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+def test_ssd_backward_on_cpu_tensors_is_the_plain_vjp_bit_for_bit():
+    """bf16 CPU tensors keep the vjp of ssd_chunked; no kernel launches."""
+    ins, chunk, gy, _ = _ssd_bwd_inputs("small", torch.float32)
+    x, dt, A, Bm, Cm = ins  # dt and A stay float32, as the mixer gives them
+    ins = [x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16), Cm.to(torch.bfloat16)]
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    launches = ssd_kernel.BWD_LAUNCHES
+    y, _ = SSDScan.apply(*a, chunk)
+    got = torch.autograd.grad(y, a, gy.to(y.dtype))
+    y2, _ = ssd_chunked(*b, chunk)
+    want = torch.autograd.grad(y2, b, gy.to(y2.dtype))
+    assert ssd_kernel.BWD_LAUNCHES == launches
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # and the kernels' wrapper refuses CPU tensors
+    x = ins[0]
+    B, S, nh, _ = x.shape
+    dtf = ins[1].transpose(1, 2).reshape(B * nh, S).contiguous()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_kernel.ssd_scan_bwd_cuda(x, dtf, dtf, ins[2], ins[3], ins[4], x, None, chunk=chunk)
+
+
+def test_ssd_bwd_plan_launches_five_kernels_of_their_own():
+    plan = ssd_kernel.ssd_bwd_plan(24 * 24, 2048, 64, 128, 24, 256)
+    assert [st.kernel for st in plan.stages] == [
+        "ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel", "ssd_bwd_keys_kernel",
+        "ssd_bwd_queries_kernel", "ssd_bwd_dda_kernel"]
+    # the forward's names are counted as forward calls by name substring
+    assert not any(f in st.kernel for st in plan.stages
+                   for f in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out"))
+    assert [st.grid for st in plan.stages] == [(576 * 8, 2, 1), (576, 4, 1), (24 * 8, 4, 1),
+                                              (24 * 8, 4, 1), (576 * 8, 1, 1)]
+    assert max(st.smem for st in plan.stages) <= ssd_kernel.SMEM_LIMIT
+    assert plan.head_group == 24 and plan.tma
+    assert not ssd_kernel.ssd_bwd_plan(2 * 3, 192, 33, 20, 3, 96).tma  # P, N off 8
+    assert ssd_kernel.ssd_bwd_plan(6, 192, 40, 24, 3, 64).stages[2].grid == (2 * 3, 1, 1)
 
 
 def test_grouped_matmul_function_gradcheck():
