@@ -802,12 +802,12 @@ def phase_flash() -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     print("phase 4: flash kernels against their plain versions on the card", flush=True)
-    kernel.build()
+    kernel.LIBRARY.build()
     # the backward kernels must neither spill nor have their wgmmas serialised
     # at the path's hd 64; the forward (C7520) and the other hd are printed
     for name in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv_wgmma_kernel"):
-        check_ptxas(kernel.BUILD_LOG, name, lambda fn: "flash_bwd" in fn and "ILi64E" in fn)
+        check_ptxas(kernel.LIBRARY.log, name, lambda fn: "flash_bwd" in fn and "ILi64E" in fn)
     rows = {}
     for shape, (B, S, H, KV, hd, dtype, causal) in FLASH_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(len(rows))
@@ -1186,29 +1186,47 @@ def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS_PER_S) -> dict:
                 bound_by="operations" if b_ops >= b_bytes else "bytes")
 
 
+def bench_module(rel: str):
+    """A module of the benchmark, loaded from its file under ``bench/`` (its
+    own ``bench.*`` imports resolved from the repo root), so that a count
+    here is the benchmark's and the two cannot drift apart."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent
+    path = root / "bench" / rel
+    spec = importlib.util.spec_from_file_location(path.stem.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, str(root))
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(str(root))
+    return mod
+
+
 def ssd_work(B, S, nh, P, N, chunk, dtype) -> dict:
     """FLOPs the function needs on this run's shape, and the bytes each input
-    is read and each output written once.  The C·Bᵀ scores (the causal half
-    of a Q x Q product) do not depend on the head: they count once per (b,
-    chunk).  The W·x product (causal half), y_inter and the state update
-    count per (b, h, chunk).  ``bound_ms`` takes the products at the rate of
-    the unit the design runs them on: the bf16 tensor cores (989 TFLOP/s; the
-    state update's bf16 pair is two products there, counted once as the
-    function's work) for bfloat16, float32 outside the tensor cores (67) for
-    float32.  ``bound_f32_ms`` is every product at 67 TFLOP/s, the bound of
-    the CUDA-core design."""
-    Q = min(chunk, S)
-    pairs = Q * (Q + 1) // 2
-    chunks = S // Q
-    flops = (B * chunks * 2 * pairs * N
-             + B * nh * chunks * (2 * pairs * P + 4 * Q * P * N))
-    esz = torch.finfo(dtype).bits // 8
-    BH = B * nh
-    nbytes = 2 * BH * S * P * esz + 2 * BH * S * 4 + 2 * B * S * N * esz + BH * P * N * 4
+    is read and each output written once: the benchmark's count
+    (``bench/work/kernels.py::ssd_scan``, which ``ssd_scan_roofline`` reads).
+    ``bound_ms`` takes the products at the rate of the unit the design runs
+    them on: the bf16 tensor cores (989 TFLOP/s; the state update's bf16
+    pair is two products there, counted once as the function's work) for
+    bfloat16, float32 outside the tensor cores (67) for float32.
+    ``bound_f32_ms`` is every product at 67 TFLOP/s, the bound of the
+    CUDA-core design."""
+    flops, nbytes, _ = bench_module("work/kernels.py").ssd_scan(
+        B, S, nh, P, N, chunk, str(dtype).removeprefix("torch."))
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     unit = "bf16 tensor cores" if dtype == torch.bfloat16 else "float32 CUDA cores"
     return dict(bound(flops, nbytes, peak), bound_unit=unit,
                 bound_f32_ms=bound(flops, nbytes)["bound_ms"])
+
+
+def heads_first(t):
+    """(B, S, nh, ...) -> (B nh, S, ...), the layout of ``ref.ssd_scan_ref``
+    and ``ref.ssd_scan_bwd_ref``."""
+    B, S, nh = t.shape[:3]
+    return t.transpose(1, 2).reshape(B * nh, S, *t.shape[3:])
 
 
 def ssd_inputs(B, S, nh, P, N, dtype, seed):
@@ -1227,18 +1245,8 @@ def ssd_inputs(B, S, nh, P, N, dtype, seed):
 def ssd_bwd_work(B, S, nh, P, N, chunk) -> dict:
     """FLOPs and bytes of one bf16 backward call, the benchmark's count: the
     ``work`` of ``bench/metrics/ssd_bwd_roofline.train.py``, which
-    ``ssd_bwd_roofline.train`` reads, loaded from its file so that the two
-    cannot drift apart."""
-    import importlib.util
-
-    path = Path(__file__).resolve().parent / "bench" / "metrics" / "ssd_bwd_roofline.train.py"
-    spec = importlib.util.spec_from_file_location("ssd_bwd_roofline_train", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.path.insert(0, str(path.parents[2]))  # its ``bench.work`` imports
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path.remove(str(path.parents[2]))
+    ``ssd_bwd_roofline.train`` reads (``bench_module``)."""
+    mod = bench_module("metrics/ssd_bwd_roofline.train.py")
     flops, nbytes, _ = mod.work(B, S, nh, P, N, chunk, "bfloat16")
     return bound(flops, nbytes, BF16_FLOPS_PER_S)
 
@@ -1252,24 +1260,21 @@ def ssd_bwd_check(ssd) -> dict:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref
     from repro_torch.model.ssm import ssd_chunked
 
-    check_ptxas(ssd.BUILD_LOG, "ssd_bwd", lambda fn: True)
-    # each entry refuses the other's layout of x, in its own check
+    check_ptxas(ssd.LIBRARY.log, "ssd_bwd", lambda fn: True)
+    # both entries refuse a folded (B nh, S, P) x, in their own check
     x, dt, A, B_, C_ = ssd_inputs(1, 64, 2, 16, 16, torch.bfloat16, 399)
-    dtf = dt.transpose(1, 2).reshape(2, 64).contiguous()
+    xf, dtf = heads_first(x).contiguous(), heads_first(dt).contiguous()
     for what, call in (
-            ("forward", lambda: ssd.ssd_scan_cuda(x, dtf, dtf * A[:, None], B_, C_, nheads=2,
-                                                  chunk=64)),
-            ("backward", lambda: ssd.ssd_scan_bwd_cuda(
-                x.transpose(1, 2).reshape(2, 64, 16).contiguous(), dtf, dtf * A[:, None], A,
-                B_, C_, x.transpose(1, 2).reshape(2, 64, 16).contiguous(), None, chunk=64))):
+            ("forward", lambda: ssd.ssd_scan_cuda(xf, dtf, dtf * A[:, None], B_, C_, chunk=64)),
+            ("backward", lambda: ssd.ssd_scan_bwd_cuda(xf, dtf, dtf * A[:, None], A, B_, C_, xf,
+                                                       None, chunk=64))):
         try:
             call()
             said = None
         except ValueError as e:
             said = str(e)
         check(said is not None and "ssd_scan kernel: x is" in said,
-              f"ssd_scan {what}: the other entry's layout of x was not refused by its "
-              f"check ({said})")
+              f"ssd_scan {what}: a folded x was not refused by its check ({said})")
     rows = {}
     for seed, (shape, (B, S, nh, P, N, chunk, decay)) in enumerate(SSD_BWD_SHAPES.items()):
         x, dt, A, B_, C_ = ssd_inputs(B, S, nh, P, N, torch.bfloat16, 400 + seed)
@@ -1278,21 +1283,18 @@ def ssd_bwd_check(ssd) -> dict:
         elif decay == "steep":
             dt, A = torch.full_like(dt, 0.5), torch.full_like(A, -4.0)
         g = torch.Generator(device="cuda").manual_seed(500 + seed)
-        dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
+        dtf = heads_first(dt).contiguous()
         daf = dtf * A.repeat(B)[:, None]
         dy = torch.randn(B, S, nh, P, generator=g, device="cuda").to(torch.bfloat16)
         ds = torch.randn(B * nh, P, N, generator=g, device="cuda")
         row = dict(shape=shape, B=B, S=S, nh=nh, P=P, N=N, chunk=chunk,
                    plan=[st.grid for st in ssd.ssd_bwd_plan(B * nh, S, P, N, nh, chunk).stages])
 
-        def bh(t):  # (B, S, nh, P) -> (B nh, S, P), float32
-            return t.float().transpose(1, 2).reshape(B * nh, S, P)
-
         for dstate in (ds, None):
             got = ssd.ssd_scan_bwd_cuda(x, dtf, daf, A, B_, C_, dy, dstate, chunk=chunk)
             again = ssd.ssd_scan_bwd_cuda(x, dtf, daf, A, B_, C_, dy, dstate, chunk=chunk)
-            want = ssd_scan_bwd_ref(bh(x), dtf, A, B_.float(), C_.float(), bh(dy), dstate,
-                                    nheads=nh, chunk=chunk)
+            want = ssd_scan_bwd_ref(heads_first(x.float()), dtf, A, B_.float(), C_.float(),
+                                    heads_first(dy.float()), dstate, nheads=nh, chunk=chunk)
             want = (want[0].reshape(B, nh, S, P).transpose(1, 2), *want[1:])
             torch.cuda.synchronize()
             tag = "dstate" if dstate is not None else "no_dstate"
@@ -1338,18 +1340,18 @@ def phase_norm_ssd():
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     print("phase 6: RMSNorm and SSD scan kernels against their plain versions", flush=True)
-    rms.build()
-    ssd.build()
+    rms.LIBRARY.build()
+    ssd.LIBRARY.build()
     # strict on the instantiations this phase's shapes run
     used = set()
     for R, d, dtype in NORM_SHAPES.values():
         plan = rms.norm_plan(R, d, dtype)
         used.add(f"rmsnorm_kernelI{'13__nv_bfloat16' if dtype == torch.bfloat16 else 'f'}"
                  f"Li{plan.vec}ELi{plan.vecs_per_lane}E")
-    check_ptxas(rms.BUILD_LOG, "rmsnorm_kernel", lambda fn: any(u in fn for u in used))
+    check_ptxas(rms.LIBRARY.log, "rmsnorm_kernel", lambda fn: any(u in fn for u in used))
     # strict on the bf16 SSD kernels the path runs (TMA: ILb1E); the float32
     # kernel (the CUDA-core design) and the thread-staged chunk outputs are printed
-    check_ptxas(ssd.BUILD_LOG, "ssd_", lambda fn: "f32" not in fn and "ILb0E" not in fn)
+    check_ptxas(ssd.LIBRARY.log, "ssd_", lambda fn: "f32" not in fn and "ILb0E" not in fn)
     norm_rows = {}
     for seed, (shape, (R, d, dtype)) in enumerate(NORM_SHAPES.items()):
         g = torch.Generator(device="cuda").manual_seed(100 + seed)
@@ -1389,10 +1391,10 @@ def phase_norm_ssd():
     ssd_rows = {}
     for seed, (shape, (B, S, nh, P, N, chunk, dtype)) in enumerate(SSD_SHAPES.items()):
         x, dt, A, B_, C_ = ssd_inputs(B, S, nh, P, N, dtype, 200 + seed)
-        xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
-        dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
+        xf, dtf = heads_first(x).contiguous(), heads_first(dt).contiguous()
         daf = dtf * A.repeat(B)[:, None]
-        y_k, st_k = ssd.ssd_scan_cuda(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+        y_k, st_k = ssd.ssd_scan_cuda(x, dtf, daf, B_, C_, chunk=chunk)
+        y_k = heads_first(y_k)  # as the plain version lays y out
         y_p, st_p = ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
         torch.cuda.synchronize()
         tol_y, tol_s = SSD_TOL[dtype]
@@ -1402,7 +1404,7 @@ def phase_norm_ssd():
             check(bool(torch.isfinite(a).all()), f"ssd_scan {shape}: non-finite kernel {what}")
 
         def kern():
-            return ssd.ssd_scan_cuda(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+            return ssd.ssd_scan_cuda(x, dtf, daf, B_, C_, chunk=chunk)
 
         def plain():
             return ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
@@ -1438,10 +1440,10 @@ def phase_norm_ssd():
     B, S, nh, P, N, chunk, dtype = SSD_RISING
     x, dt, A, B_, C_ = ssd_inputs(B, S, nh, P, N, dtype, 300)
     A = torch.where(torch.arange(nh, device="cuda") % 2 == 1, -0.05 * A, A)
-    xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
-    dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
+    xf, dtf = heads_first(x).contiguous(), heads_first(dt).contiguous()
     daf = dtf * A.repeat(B)[:, None]
-    y_k, st_k = ssd.ssd_scan_cuda(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+    y_k, st_k = ssd.ssd_scan_cuda(x, dtf, daf, B_, C_, chunk=chunk)
+    y_k = heads_first(y_k)
     y_p, st_p = ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
     tol_y, tol_s = SSD_TOL[dtype]
     check(bool(torch.isfinite(y_k).all() and torch.isfinite(st_k).all()),
@@ -2005,8 +2007,8 @@ def phase_gmm() -> dict:
     from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
 
     print("phase 8: grouped-matmul kernel against its plain version on the card", flush=True)
-    gmm.build()
-    check_ptxas(gmm.BUILD_LOG, "gmm_wgmma_kernel", lambda fn: True)
+    gmm.LIBRARY.build()
+    check_ptxas(gmm.LIBRARY.log, "gmm_wgmma_kernel", lambda fn: True)
     rows = {}
     for seed, (shape, (E, C, d, f, dtype)) in enumerate(GMM_SHAPES.items()):
         g = torch.Generator(device="cuda").manual_seed(300 + seed)
@@ -4046,7 +4048,7 @@ def build_all(programs) -> None:
     from repro_torch.kernels.stream_fused import kernel as stream
 
     mods = (flash, rms, ssd, gmm, quant)
-    jobs = [(mod.SOURCE.name, mod.build) for mod in mods]
+    jobs = [(mod.LIBRARY.source.name, mod.LIBRARY.build) for mod in mods]
     compiled = {}
 
     def gen(name, prog):
@@ -4070,8 +4072,8 @@ def build_all(programs) -> None:
     if errors:
         raise RuntimeError("kernel build failed: " + "; ".join(errors))
     for mod in mods:
-        print(f"  {mod.SOURCE.name}: nvcc build {mod.BUILD_SECONDS}s", flush=True)
-        for line in mod.BUILD_LOG.strip().splitlines():
+        print(f"  {mod.LIBRARY.source.name}: nvcc build {mod.LIBRARY.seconds}s", flush=True)
+        for line in mod.LIBRARY.log.strip().splitlines():
             print(f"    {line.strip()}", flush=True)
     seconds = {lib: t1 - t0 for t0, t1, lib in stream.BUILDS}  # plan, emit, nvcc, load
     for name, c in compiled.items():
@@ -4080,7 +4082,7 @@ def build_all(programs) -> None:
               f"{'block' if pl.block_scope else 'warp' if pl.span else 'none'}, "
               f"{pl.k_big} groups a thread at large N; built in {seconds[c.library]:.2f}s",
               flush=True)
-        check_ptxas(stream.BUILD_LOG[c.library], "stream_fused_kernel", lambda fn: True)
+        check_ptxas(stream.LIBRARIES[c.library].log, "stream_fused_kernel", lambda fn: True)
 
 
 def timed(phase, *args):

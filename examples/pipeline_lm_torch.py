@@ -246,8 +246,8 @@ def main(argv=None):
         return rank_main(args.rank, Path(args.work), args.device)
     device = resolve_device(args.device, "pipeline_lm")
     if device.type == "cuda":  # build once here, not in each rank
-        flash.build()
-        rms.build()
+        flash.LIBRARY.build()
+        rms.LIBRARY.build()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="pipeline_lm_") as tmp:
         logs = spawn(device, Path(tmp))

@@ -9,7 +9,9 @@ the order given, which builds that tree's kernels from its own sources and
 times, by CUDA-graph replay with ``chip_smoke.py``'s helpers and inputs:
 
 * the bf16 SSD scan at the serving path's shape (B=8, S=2048, nh=24, P=64,
-  N=128, chunk 256), ms per call;
+  N=128, chunk 256) as the mixer calls it (``ops.ssd_scan_local``, which
+  each tree has: the step sizes folded to (B nh, S) and the kernels), ms
+  per call;
 * the stream kernel on the four fused Table-I programs at N = 4*4096 and
   32*4*4096, ms per launch on the device, and at N = 4*4096 the host's ms
   per call back to back (``chip_smoke.call_ms``: the wrapper's own cost).
@@ -35,17 +37,14 @@ sys.path.insert(0, sys.argv[1])
 sys.path.insert(1, sys.argv[2])
 import chip_smoke as cs
 from repro_torch.apps.streams import NETWORKS
-from repro_torch.kernels.ssd_scan import kernel as ssd
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_local
 from repro_torch.kernels.stream_fused import kernel as stream
 
 B, S, nh, P, N, chunk, dtype = cs.SSD_SHAPES["path"]
 x, dt, A, B_, C_ = cs.ssd_inputs(B, S, nh, P, N, dtype, 200)
-xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
-dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
-daf = dtf * A.repeat(B)[:, None]
 
 def scan():
-    return ssd.ssd_scan_cuda(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
+    return ssd_scan_local(x, dt, A, B_, C_, chunk=chunk)
 
 out = {"tree": sys.argv[1], "ssd_path_ms": cs.device_ms(scan, 50), "stream_ms": {},
        "stream_call_ms": {}}

@@ -11,10 +11,13 @@
 //   y_inter = (C state^T) * exp(a_cs[q])
 //   state  = state * exp(a_cs[Q-1]) + x^T (B * exp(a_cs[Q-1] - a_cs[k]) * dt[k])
 // and the state after the last chunk is the second output.  Layout: x, y
-// (BH, S, P) in bfloat16 or float32; dt, da (BH, S) float32; B, C (Bb, S, N)
-// of x's type, shared by the nheads heads of a batch row (row bh reads
-// bh / nheads, as the Pallas index map b // nheads); state (BH, P, N) float32.
-// P <= 64, N <= 128, Q <= 256 and Q divides S.
+// (Bb, S, nheads, P) in bfloat16 or float32, the model's, which every kernel
+// reads and writes as it lies (row bh is head bh % nheads of batch row
+// bh / nheads, at row stride nheads * P: row_base, and for TMA rows_map,
+// boxes of one head); dt, da (BH, S) float32; B, C (Bb, S, N) of x's type,
+// shared by the nheads heads of a batch row (row bh reads bh / nheads, as
+// the Pallas index map b // nheads); state (BH, P, N) float32.  P <= 64,
+// N <= 128, Q <= 256 and Q divides S.
 //
 // Above the diagonal a_cs[q] - a_cs[k] is positive and exp overflows: L is a
 // select (q >= k ? exp(...) : 0), never a multiply by a 0/1 mask, which would
@@ -91,7 +94,9 @@
 //      kernel's.  It takes the largest head group, at most 8, that still
 //      gives every SM of the card a block (8 of 24 heads at the path: 384
 //      blocks; groups 2, 4, 6 and 8 timed within 5% of each other there),
-//      the pairs with the most keys first.
+//      the pairs with the most keys first, and a chunk's head groups one
+//      after another (y's rows lie nheads P apart: neighbouring blocks write
+//      neighbouring heads of a row).
 //   Where P or N is not a multiple of 8 or a pointer is not 16-byte aligned,
 //   TMA cannot address the tensors: the threads stage the same tiles element
 //   by element (zeros past P, N and the chunk); the products are the same.
@@ -159,8 +164,8 @@
 //      diagonal; TMA and a 2-slot mbarrier ring of each head's x, dy and D,
 //      issued by one thread once both warpgroups are done with the slot; the
 //      next head's scalars (a_cs, dt, the pair flag) load while a head
-//      computes.  x, dy and dx lie in the model's layout (B, S, nheads, P), so
-//      the call makes no transposed copies (rows_map: boxes of one head).
+//      computes.  x, dy and dx lie in the model's layout, as the forward's x
+//      and y do.
 //      Warpgroup 0: B D^T (keys x P, D as hi + lo), Z and dx = s o B D^T;
 //      per query tile G^T = B C^T and dW^T = x dy^T (wgmma, K-major both),
 //      W^T in registers as wgmma's A, dx += W^T dy (dy MN-major), the key's
@@ -300,6 +305,23 @@ __device__ __forceinline__ size_t row_base(int bh, int s, int S, int P, int nhea
   return (((size_t)(bh / nheads) * S + s) * nheads + bh % nheads) * P;
 }
 
+// The tensor map of a (B, S, nheads, P) bf16 tensor, read in boxes of 64
+// positions of one head (dims (P, nheads, B S), box (64, 1, 64), coordinates
+// (0, h, b S + s)): 128-byte rows, swizzled at 128 B, as tensor_map_3d's
+// boxes of B and C.
+int rows_map(CUtensorMap* map, const void* p, uint64_t P, uint64_t nheads, uint64_t rows) {
+  if (encode_tiled == nullptr) return (int)cudaErrorInitializationError;
+  const cuuint64_t dims[3] = {P, nheads, rows};
+  const cuuint64_t strides[2] = {P * 2, P * nheads * 2};
+  const cuuint32_t box[3] = {64, 1, 64};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+                                  dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // v = hi + lo to about 16 bits, for two neighbouring values of a fragment
 __device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
@@ -315,10 +337,9 @@ __device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uin
 // the chunk (csrc header note, backward).  TMA: v and M arrive by TMA while
 // the threads take the cumsum; else the threads stage them element by
 // element.  v~ = v * s is formed in registers as wgmma's A fragments, a bf16
-// pair hi + lo; M is read MN-major as it lies.  ROWS: v lies in the model's
-// layout (B, S, nheads, P) (rows_map), else (BH, S, P).  sx: the block's
-// shared memory at a 1024-byte boundary.
-template <bool TMA, bool COT, bool ROWS = false>
+// pair hi + lo; M is read MN-major as it lies.  sx: the block's shared
+// memory at a 1024-byte boundary.
+template <bool TMA, bool COT>
 __device__ __forceinline__ void chunk_state(unsigned char* sx, const CUtensorMap* tx,
                                             const CUtensorMap* tb,
                                             const bf16* __restrict__ x,
@@ -345,10 +366,7 @@ __device__ __forceinline__ void chunk_state(unsigned char* sx, const CUtensorMap
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar, 3 * KT * TILE);
     for (int kt = 0; kt < KT; ++kt) {
-      if (ROWS)
-        tma_load_3d(sx + kt * TILE, tx, bar, 0, bh % nheads, (bh / nheads) * S + c * Q + 64 * kt);
-      else
-        tma_load_3d(sx + kt * TILE, tx, bar, 0, c * Q + 64 * kt, bh);
+      tma_load_3d(sx + kt * TILE, tx, bar, 0, bh % nheads, (bh / nheads) * S + c * Q + 64 * kt);
       for (int j = 0; j < 2; ++j)
         tma_load_3d(sb + j * QMAX * ROWB + kt * TILE, tb, bar, 64 * j, c * Q + 64 * kt,
                     bh / nheads);
@@ -375,10 +393,7 @@ __device__ __forceinline__ void chunk_state(unsigned char* sx, const CUtensorMap
     __syncthreads();
     mbar_wait(bar, 0);
   } else {
-    if (ROWS)
-      stage_tile(sx, S1_X, 64 * KT, 1, x + row_base(bh, c * Q, S, P, nheads), nheads * P, Q, P, WG);
-    else
-      stage_tile(sx, S1_X, 64 * KT, 1, x + row0 * P, P, Q, P, WG);
+    stage_tile(sx, S1_X, 64 * KT, 1, x + row_base(bh, c * Q, S, P, nheads), nheads * P, Q, P, WG);
     stage_tile(sb, QMAX * ROWB, 64 * KT, 2, Bm + ((size_t)(bh / nheads) * S + (size_t)c * Q) * N,
                N, Q, N, WG);
     fence_async_shared();
@@ -548,11 +563,11 @@ __device__ __forceinline__ float weight(float gv, int q, int k, float aq, float 
   return q >= k ? __fmul_rn(__fmul_rn(gv, __expf(aq - ak)), dk) : 0.f;
 }
 
-// y's elements (q, p) and (q, p + 1) of a chunk, those inside it
-__device__ __forceinline__ void store_pair(bf16* yc, int q, int p, float v0, float v1, int Q,
-                                           int P) {
+// y's elements (q, p) and (q, p + 1) of a chunk, those inside it (rows ld apart)
+__device__ __forceinline__ void store_pair(bf16* yc, int ld, int q, int p, float v0, float v1,
+                                           int Q, int P) {
   if (q >= Q) return;
-  bf16* row = yc + (size_t)q * P;
+  bf16* row = yc + (size_t)q * ld;
   if (p + 1 < P && P % 2 == 0) {
     *reinterpret_cast<uint32_t*>(row + p) = pack_bf16(v0, v1);
   } else {
@@ -629,6 +644,7 @@ __device__ __forceinline__ void heads(const float (&G)[NKT][32], const OutArgs& 
   const int warp = (tid / 32) % 4, lane = tid & 31, g = lane >> 2, tig = lane & 3;
   const int qt = 2 * z + wg;  // this warpgroup's query tile
   const int q0 = 64 * qt + warp * 16 + g, q1 = q0 + 8;  // this thread's rows
+  const int ld = a.nheads * a.P;  // x and y: (B, S, nheads, P)
   for (int i = 0; i < ng; ++i) {
     const int s = TMA ? i % NST : 0;
     const bool pair = PAIR && ((pairs >> i) & 1);
@@ -637,8 +653,8 @@ __device__ __forceinline__ void heads(const float (&G)[NKT][32], const OutArgs& 
       mbar_wait(&full[s], (i / NST) & 1);
     } else {
       sync_threads(2 * WG);  // the previous head's readers of the slot are done
-      stage_tile(slot, S3_X, KEYS, 1, a.x + ((size_t)(bh0 + i) * a.S + crow) * a.P, a.P, a.Q,
-                 a.P, 2 * WG);
+      stage_tile(slot, S3_X, KEYS, 1, a.x + row_base(bh0 + i, crow, a.S, a.P, a.nheads), ld,
+                 a.Q, a.P, 2 * WG);
       stage_tile(slot + S3_X, TILE, 64, 2,
                  a.entering + ((size_t)(bh0 + i) * chunks + c) * (PP * NP), NP, PP, NP, 2 * WG);
       if (PAIR && pair)
@@ -713,12 +729,12 @@ __device__ __forceinline__ void heads(const float (&G)[NKT][32], const OutArgs& 
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    bf16* yc = a.y + ((size_t)(bh0 + i) * a.S + crow) * a.P;
+    bf16* yc = a.y + row_base(bh0 + i, crow, a.S, a.P, a.nheads);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int p = 8 * j + 2 * tig;
-      store_pair(yc, q0, p, y[4 * j], y[4 * j + 1], a.Q, a.P);
-      store_pair(yc, q1, p, y[4 * j + 2], y[4 * j + 3], a.Q, a.P);
+      store_pair(yc, ld, q0, p, y[4 * j], y[4 * j + 1], a.Q, a.P);
+      store_pair(yc, ld, q1, p, y[4 * j + 2], y[4 * j + 3], a.Q, a.P);
     }
   }
 }
@@ -746,8 +762,12 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
 
   const int tid = threadIdx.x, wg = tid / WG;
   const int chunks = a.S / a.Q;
-  const int b = blockIdx.x / chunks, c = blockIdx.x % chunks;
-  const int h0 = blockIdx.y * a.group;
+  // the head groups of a chunk run one after another in the launch order, so
+  // that y's rows, x's rows (nheads P apart) and the chunk's B and C tiles are
+  // written and read by neighbouring blocks
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int b = lin / gridDim.y / chunks, c = lin / gridDim.y % chunks;
+  const int h0 = lin % gridDim.y * a.group;
   const int ng = min(a.group, a.nheads - h0);
   const int bh0 = b * a.nheads + h0;
   const int crow = c * a.Q;  // the chunk's first row of S
@@ -784,7 +804,7 @@ __device__ __forceinline__ void chunk_out(const CUtensorMap* tx, const CUtensorM
           unsigned char* slot = ring + s * S3_SLOT;
           mbar_expect_tx(&full[s], (NKT + 2 + 2 * pair) * TILE);
           for (int kt = 0; kt < NKT; ++kt)
-            tma_load_3d(slot + kt * TILE, tx, &full[s], 0, crow + 64 * kt, bh0 + i);
+            tma_load_3d(slot + kt * TILE, tx, &full[s], 0, h0 + i, b * a.S + crow + 64 * kt);
           for (int j = 0; j < 2; ++j)
             tma_load_3d(slot + S3_X + j * TILE, th, &full[s], 64 * j, 0,
                         (bh0 + i) * chunks + c);
@@ -901,7 +921,7 @@ int launch_bf16(const void* x, const void* dt, const void* da, const void* B, co
   int* pairs = static_cast<int*>(rising) + lo_row;  // stage 2's, after stage 1's flags
   CUtensorMap tx{}, tb{}, tc{}, th{};
   if (TMA) {
-    int err = tensor_map_3d(&tx, x, P, S, BH, 64, 64);
+    int err = rows_map(&tx, x, P, nheads, (uint64_t)Bb * S);
     if (err == 0) err = tensor_map_3d(&tb, B, N, S, Bb, 64, 64);
     if (err == 0) err = tensor_map_3d(&tc, C, N, S, Bb, 64, 64);
     if (err == 0) err = tensor_map_3d(&th, entering, NP, PP, 2 * (uint64_t)lo_row, 64, 64);
@@ -980,11 +1000,11 @@ ssd_bwd_chunk_state_kernel(const __grid_constant__ CUtensorMap tx,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sx = shared_align1024(smem_raw);
   if (blockIdx.y == 0)
-    chunk_state<TMA, false, true>(sx, &tx, &tb, x, dt, da, Bm, acs_out, states, rising, S, P, N,
-                                  nheads, Q);
+    chunk_state<TMA, false>(sx, &tx, &tb, x, dt, da, Bm, acs_out, states, rising, S, P, N,
+                            nheads, Q);
   else
-    chunk_state<TMA, true, true>(sx, &tdy, &tc, dy, dt, da, Cm, acs_out, cot, rising, S, P, N,
-                                 nheads, Q);
+    chunk_state<TMA, true>(sx, &tdy, &tc, dy, dt, da, Cm, acs_out, cot, rising, S, P, N, nheads,
+                           Q);
 }
 
 // exp(v) where in, else 0, with no branch: the argument is selected before
@@ -1747,22 +1767,6 @@ ssd_bwd_dda_kernel(const float* __restrict__ acs, const float* __restrict__ dt,
   if (t == 0) dA_part[blockIdx.x] = part;
 }
 
-// The tensor map of a (B, S, nheads, P) bf16 tensor, read in boxes of 64
-// positions of one head (dims (P, nheads, B S), box (64, 1, 64)): the same
-// 128-byte rows, swizzled at 128 B, as tensor_map_3d's boxes of (BH, S, P).
-int rows_map(CUtensorMap* map, const void* p, uint64_t P, uint64_t nheads, uint64_t rows) {
-  if (encode_tiled == nullptr) return (int)cudaErrorInitializationError;
-  const cuuint64_t dims[3] = {P, nheads, rows};
-  const cuuint64_t strides[2] = {P * 2, P * nheads * 2};
-  const cuuint32_t box[3] = {64, 1, 64};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-                                  dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <bool TMA>
 int launch_bwd(void* const* p, int BH, int S, int P, int N, int nheads, int Q,
                const dim3* grids, cudaStream_t st) {
@@ -1886,12 +1890,13 @@ ssd_scan_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / nheads;
-  const float* xb = x + (size_t)bh * S * P;
+  const int ld = nheads * P;  // x and y: (B, S, nheads, P)
+  const float* xb = x + row_base(bh, 0, S, P, nheads);
   const float* dtb = dt + (size_t)bh * S;
   const float* dab = da + (size_t)bh * S;
   const float* Bb = Bm + (size_t)b * S * N;
   const float* Cb = Cm + (size_t)b * S * N;
-  float* yb = y + (size_t)bh * S * P;
+  float* yb = y + row_base(bh, 0, S, P, nheads);
 
   for (int i = tid; i < PT * NS; i += THREADS) sState[i] = 0.f;
 
@@ -1951,7 +1956,7 @@ ssd_scan_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         const int nk = min(TK, Q - k0);
         __syncthreads();  // the previous tile's sB / sX / sW readers are done
         stage(sB, TK, NT, NS, Bb + (size_t)(c0 + k0) * N, nk, N, N, (const float*)nullptr);
-        stage(sX, TK, PT, PT, xb + (size_t)(c0 + k0) * P, nk, P, P, (const float*)nullptr);
+        stage(sX, TK, PT, PT, xb + (size_t)(c0 + k0) * ld, nk, P, ld, (const float*)nullptr);
         __syncthreads();
         float s[4][4];
 #pragma unroll
@@ -2003,7 +2008,7 @@ ssd_scan_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int p = tx + 16 * j;
-            if (p < P) yb[(size_t)(c0 + q0 + r) * P + p] = acc[i][j];
+            if (p < P) yb[(size_t)(c0 + q0 + r) * ld + p] = acc[i][j];
           }
         }
       }
@@ -2025,7 +2030,7 @@ ssd_scan_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       }
       __syncthreads();
       stage(sB, TK, NT, NS, Bb + (size_t)(c0 + k0) * N, nk, N, N, (const float*)sW);
-      stage(sX, TK, PT, PT, xb + (size_t)(c0 + k0) * P, nk, P, P, (const float*)nullptr);
+      stage(sX, TK, PT, PT, xb + (size_t)(c0 + k0) * ld, nk, P, ld, (const float*)nullptr);
       __syncthreads();
       for (int k = 0; k < nk; ++k) {
         float xv[4], bv[8];
@@ -2128,13 +2133,13 @@ int ssd_scan_bf16_launch(const void* x, const void* dt, const void* da, const vo
 }
 
 // The bfloat16 backward: five kernels on the caller's tensors, 22 pointers
-// in p: x, dy (BH, S, P), dt, da (BH, S) float32, A (nheads) float32, B, C
-// (BH / nheads, S, N), the final state's cotangent (BH, P, N) float32 or null;
-// dx (BH, S, P), ddt (BH, S) float32, A's parts (BH, S / Q) float32, dB, dC;
-// the temporaries acs (BH, S) float32, rising (2, BH, S / Q) int32, states
-// and cot (BH, S / Q, 64, 128) float32, rows4 (4, BH, S / Q, 64, 128)
-// bfloat16 (H hi, H lo, D hi, D lo), Z, colT, dq (BH, S) float32 and dlast
-// (BH, S / Q) float32.  tma and plan as ssd_scan_bf16_launch's.  Returns the
+// in p: x, dy (BH / nheads, S, nheads, P), dt, da (BH, S) float32, A (nheads)
+// float32, B, C (BH / nheads, S, N), the final state's cotangent (BH, P, N)
+// float32 or null; dx (BH / nheads, S, nheads, P), ddt (BH, S) float32, A's
+// parts (BH, S / Q) float32, dB, dC; the temporaries acs (BH, S) float32,
+// rising (2, BH, S / Q) int32, states and cot (BH, S / Q, 64, 128) float32,
+// rows4 (4, BH, S / Q, 64, 128) bfloat16 (H hi, H lo, D hi, D lo), Z, colT,
+// dq (BH, S) float32 and dlast (BH, S / Q) float32.  tma and plan as ssd_scan_bf16_launch's.  Returns the
 // CUDA error of the launches (0: launched).
 int ssd_scan_bwd_launch(void* const* p, int BH, int S, int P, int N, int nheads, int Q, int tma,
                         const int* plan, void* stream) {

@@ -8,6 +8,11 @@ never reused and two processes never write the same file (each builds the
 library and its report into temporary names and renames them into place, the
 report first).  nvcc's ``-Xptxas -v`` report is
 kept beside the library and returned with it, built or not.
+
+A kernel module holds its library as a ``Library``: built and loaded once
+per process, its entry points declared by the module's ``bind``, and its
+``init`` entry, where it has one, run once per device before the first
+launch there.
 """
 
 from __future__ import annotations
@@ -18,9 +23,12 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Set, Tuple
+
+import torch
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -93,3 +101,55 @@ def build_library(source: Path, flags: Sequence[str]) -> Tuple[ctypes.CDLL, floa
     lib = ctypes.CDLL(str(so))
     log = report.read_text() if report.exists() else ""
     return lib, time.perf_counter() - t0, log
+
+
+class Library:
+    """The library of one CUDA source, as its kernel module holds it.
+
+    ``build()`` compiles and loads it once per process (``build_library``
+    with ``flags``) and declares its entry points with ``bind(lib)``.
+    ``on(device)`` also runs its ``init`` entry, a C function of no argument
+    that returns a CUDA error, once per device, and raises ``RuntimeError``
+    (``"<what>: <init> failed: CUDA error <n>"``) on a non-zero one.
+    ``seconds`` and ``log`` are the build's seconds and ptxas report;
+    ``lock`` also guards the module's launch counters."""
+
+    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None],
+                 init: Optional[str] = None, what: str = "",
+                 flags: Sequence[str] = COMMON_FLAGS):
+        self.source = Path(source)
+        self.what = what or self.source.stem
+        self.flags = tuple(flags)
+        self.lock = threading.Lock()
+        self.seconds: Optional[float] = None
+        self.log = ""
+        self._bind, self._init = bind, init
+        self._lib: Optional[ctypes.CDLL] = None
+        self._ready: Set[int] = set()  # devices whose init has run
+
+    def build(self) -> ctypes.CDLL:
+        """Compile (unless an up-to-date build exists), load and bind, once."""
+        with self.lock:
+            if self._lib is None:
+                lib, self.seconds, self.log = build_library(self.source, self.flags)
+                self._bind(lib)
+                if self._init is not None:
+                    fn = getattr(lib, self._init)
+                    fn.restype, fn.argtypes = ctypes.c_int, []
+                self._lib = lib
+            return self._lib
+
+    def on(self, device: torch.device) -> ctypes.CDLL:
+        """The library, its ``init`` run on ``device``."""
+        lib = self.build()
+        if self._init is None:
+            return lib
+        idx = device.index if device.index is not None else torch.cuda.current_device()
+        if idx not in self._ready:
+            with self.lock, torch.cuda.device(idx):
+                if idx not in self._ready:
+                    err = getattr(lib, self._init)()
+                    if err != 0:
+                        raise RuntimeError(f"{self.what}: {self._init} failed: CUDA error {err}")
+                    self._ready.add(idx)
+        return lib

@@ -8,7 +8,7 @@ kernels and how the design answers that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
-  loaded with ``ctypes`` (``kernels/build.py``).  ``flash_init`` lifts the
+  loaded with ``ctypes`` (``LIBRARY``, a ``kernels/build.py::Library``).  ``flash_init`` lifts the
   shared-memory limit of every instantiation once per device and looks up
   the tensor-map encoder ``cuTensorMapEncodeTiled`` at run time (no
   ``-lcuda``).
@@ -28,65 +28,35 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-from typing import Optional, Set, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
+from repro_torch.kernels.build import CSRC, Library
 
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
-BUILD_SECONDS: Optional[float] = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
-SOURCE = CSRC / "flash_attention.cu"
-NVCC_FLAGS = COMMON_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64  # csrc/flash_attention.cu TILE: rows per streamed tile
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lock = threading.Lock()
-_lib = None
-_ready: Set[int] = set()  # devices whose smem limits flash_init has lifted
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i, i, i, i, i, i, f, i, p]  # BH BKV Sq Sk hd bf16 scale causal stream
+    for name, n_ptr in (
+        ("flash_fwd_launch", 5),
+        ("flash_bwd_dq_launch", 7),
+        ("flash_bwd_dkv_launch", 8),
+    ):
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = [p] * n_ptr + tail
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per process and source) and load the kernel library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib, BUILD_SECONDS, log = build_library(SOURCE, NVCC_FLAGS)
-        BUILD_LOG = log or BUILD_LOG
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [i, i, i, i, i, i, f, i, p]  # BH BKV Sq Sk hd bf16 scale causal stream
-        lib.flash_init.restype = i
-        lib.flash_init.argtypes = []
-        for name, n_ptr in (
-            ("flash_fwd_launch", 5),
-            ("flash_bwd_dq_launch", 7),
-            ("flash_bwd_dkv_launch", 8),
-        ):
-            fn = getattr(lib, name)
-            fn.restype = i
-            fn.argtypes = [p] * n_ptr + tail
-        _lib = lib
-        return lib
-
-
-def _library(dev: torch.device) -> ctypes.CDLL:
-    lib = build()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _ready:
-        with _lock, torch.cuda.device(idx):
-            if idx not in _ready:
-                err = lib.flash_init()
-                if err != 0:
-                    raise RuntimeError(f"flash kernels: flash_init failed: CUDA error {err}")
-                _ready.add(idx)
-    return lib
+LIBRARY = Library(CSRC / "flash_attention.cu", _bind, init="flash_init", what="flash kernels")
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tensor
@@ -153,7 +123,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, scale: Optional[float] = Non
     global FWD_LAUNCHES
     BH, BKV, Sq, Sk, hd = check_inputs(q, k, v)
     _cuda_only(q, "flash_fwd_ref")
-    lib = _library(q.device)
+    lib = LIBRARY.on(q.device)
     o = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -164,7 +134,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True, scale: Optional[float] = Non
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
-    with _lock:
+    with LIBRARY.lock:
         FWD_LAUNCHES += 1
     return o, lse
 
@@ -177,7 +147,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     _check_rows("lse", lse, BH, Sq, q.device)
     _check_rows("delta", delta, BH, Sq, q.device)
     _cuda_only(q, "flash_bwd_dq_ref")
-    lib = _library(q.device)
+    lib = LIBRARY.on(q.device)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dq_launch(
@@ -188,7 +158,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
         )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
-    with _lock:
+    with LIBRARY.lock:
         DQ_LAUNCHES += 1
     return dq
 
@@ -201,7 +171,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     _check_rows("lse", lse, BH, Sq, q.device)
     _check_rows("delta", delta, BH, Sq, q.device)
     _cuda_only(q, "flash_bwd_dkv_ref")
-    lib = _library(q.device)
+    lib = LIBRARY.on(q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -213,6 +183,6 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
         )
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
-    with _lock:
+    with LIBRARY.lock:
         DKV_LAUNCHES += 1
     return dk, dv

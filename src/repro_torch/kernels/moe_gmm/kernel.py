@@ -6,7 +6,7 @@ header note says what bounds the kernel and how the design answers that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
-  loaded with ``ctypes`` (``kernels/build.py``).  ``moe_gmm_init`` looks up
+  loaded with ``ctypes`` (``LIBRARY``, a ``kernels/build.py::Library``).  ``moe_gmm_init`` looks up
   the tensor-map encoder and lifts the shared-memory limit of the bfloat16
   kernels once per device.
 * **Tile plan.**  ``tile_plan(C)`` picks from ``C`` only how many 64-row
@@ -25,57 +25,27 @@ header note says what bounds the kernel and how the design answers that.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Optional, Set, Tuple
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
+from repro_torch.kernels.build import CSRC, Library
 
 LAUNCHES = 0
 DX_LAUNCHES = 0  # the launches of LAUNCHES made for a backward's dx
-BUILD_SECONDS: Optional[float] = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
-SOURCE = CSRC / "moe_gmm.cu"
-NVCC_FLAGS = COMMON_FLAGS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_ALIGN = 8  # d and f: TMA's row strides are multiples of 16 bytes
 
-_lock = threading.Lock()
-_lib = None
-_ready: Set[int] = set()  # devices whose smem limits moe_gmm_init has lifted
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.moe_gmm_launch.restype = i
+    # x w y E C d f bf16 wgs stream
+    lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per process and source) and load the kernel library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib, BUILD_SECONDS, log = build_library(SOURCE, NVCC_FLAGS)
-        BUILD_LOG = log or BUILD_LOG
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.moe_gmm_init.restype = i
-        lib.moe_gmm_init.argtypes = []
-        lib.moe_gmm_launch.restype = i
-        # x w y E C d f bf16 wgs stream
-        lib.moe_gmm_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        _lib = lib
-        return lib
-
-
-def _library(dev: torch.device) -> ctypes.CDLL:
-    lib = build()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _ready:
-        with _lock, torch.cuda.device(idx):
-            if idx not in _ready:
-                err = lib.moe_gmm_init()
-                if err != 0:
-                    raise RuntimeError(f"moe_gmm kernel: moe_gmm_init failed: CUDA error {err}")
-                _ready.add(idx)
-    return lib
+LIBRARY = Library(CSRC / "moe_gmm.cu", _bind, init="moe_gmm_init", what="moe_gmm kernel")
 
 
 def tile_plan(C: int) -> int:
@@ -132,7 +102,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, dx: bool = False) -
     ``DX_LAUNCHES`` as well as in ``LAUNCHES``."""
     global LAUNCHES, DX_LAUNCHES
     E, C, d, f = check_inputs(x, w)
-    lib = _library(x.device)
+    lib = LIBRARY.on(x.device)
     y = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     if E and C and f:
         with torch.cuda.device(x.device):
@@ -142,7 +112,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, dx: bool = False) -
             )
         if err != 0:
             raise RuntimeError(f"moe_gmm launch failed: CUDA error {err}")
-        with _lock:
+        with LIBRARY.lock:
             LAUNCHES += 1
             DX_LAUNCHES += dx
     return y

@@ -6,7 +6,7 @@ header note says what bounds the kernel and how the design answers that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
-  loaded with ``ctypes`` (``kernels/build.py``).
+  loaded with ``ctypes`` (``LIBRARY``, a ``kernels/build.py::Library``).
 * **Launch.**  ``quantize_int8_cuda`` checks its input (x ``(R, d)`` with
   ``d >= 1``, bfloat16 or float32, contiguous, on CUDA; any size, offsets
   are 64-bit), allocates q and the scales, launches once on the current
@@ -17,39 +17,24 @@ header note says what bounds the kernel and how the design answers that.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
+from repro_torch.kernels.build import CSRC, Library
 
 LAUNCHES = 0
-BUILD_SECONDS: Optional[float] = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
-SOURCE = CSRC / "quant.cu"
-NVCC_FLAGS = COMMON_FLAGS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lock = threading.Lock()
-_lib = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.quant_launch.restype = ctypes.c_int
+    # x q s R d bf16 stream
+    lib.quant_launch.argtypes = [p, p, p, ll, ll, ctypes.c_int, p]
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per process and source) and load the kernel library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib, BUILD_SECONDS, log = build_library(SOURCE, NVCC_FLAGS)
-        BUILD_LOG = log or BUILD_LOG
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.quant_launch.restype = ctypes.c_int
-        # x q s R d bf16 stream
-        lib.quant_launch.argtypes = [p, p, p, ll, ll, ctypes.c_int, p]
-        _lib = lib
-        return lib
+LIBRARY = Library(CSRC / "quant.cu", _bind)
 
 
 def check_inputs(x: torch.Tensor) -> None:
@@ -72,7 +57,7 @@ def quantize_int8_cuda(x: torch.Tensor):
     """``x (R, d) -> (q int8 (R, d), scale float32 (R, 1))`` in ONE launch."""
     global LAUNCHES
     check_inputs(x)
-    lib = build()
+    lib = LIBRARY.on(x.device)
     R, d = x.shape
     q = torch.empty((R, d), dtype=torch.int8, device=x.device)
     s = torch.empty((R, 1), dtype=torch.float32, device=x.device)
@@ -84,6 +69,6 @@ def quantize_int8_cuda(x: torch.Tensor):
             )
         if err != 0:
             raise RuntimeError(f"quant launch failed: CUDA error {err}")
-        with _lock:
+        with LIBRARY.lock:
             LAUNCHES += 1
     return q, s

@@ -6,7 +6,7 @@ note says what bounds the kernel and how the design answers that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
-  loaded with ``ctypes`` (``kernels/build.py``).
+  loaded with ``ctypes`` (``LIBRARY``, a ``kernels/build.py::Library``).
 * **Plan.**  ``norm_plan(R, d, dtype)`` is a pure function of the shape:
   the warps a row, the rows a block, the 16-byte vectors a lane holds (the
   kernel's template argument) and the passes over a row.
@@ -20,20 +20,14 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from dataclasses import dataclass
-from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
+from repro_torch.kernels.build import CSRC, Library
 
 LAUNCHES = 0
-BUILD_SECONDS: Optional[float] = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
-SOURCE = CSRC / "rmsnorm.cu"
-NVCC_FLAGS = COMMON_FLAGS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VPLS = (1, 2, 3, 4, 6, 8, 12, 16)  # csrc/rmsnorm.cu: the vectors a lane may hold
 WARPS_PER_ROW = (1, 2, 4, 8)
@@ -41,9 +35,6 @@ BLOCK_WARPS = 8  # csrc/rmsnorm.cu MAX_WARPS
 HELD = {True: 4, False: 8}  # at large R, the vectors (16-byte, scalar) a lane holds
 #                           before a row takes more warps
 FEW_ROWS = 264   # fewer rows than two per SM of the H100's 132: spread each row
-
-_lock = threading.Lock()
-_lib = None
 
 
 @dataclass(frozen=True)
@@ -85,20 +76,14 @@ def norm_plan(R: int, d: int, dtype: torch.dtype, aligned: bool = True) -> NormP
     return NormPlan(wpr, rows, vpl, vec, math.ceil(nvec / (32 * wpr * vpl)))
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per process and source) and load the kernel library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib, BUILD_SECONDS, log = build_library(SOURCE, NVCC_FLAGS)
-        BUILD_LOG = log or BUILD_LOG
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rmsnorm_launch.restype = i
-        # x scale y R d bf16 eps | wpr rows vpl vec passes | stream
-        lib.rmsnorm_launch.argtypes = [p, p, p, i, i, i, ctypes.c_float] + [i] * 5 + [p]
-        _lib = lib
-        return lib
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rmsnorm_launch.restype = i
+    # x scale y R d bf16 eps | wpr rows vpl vec passes | stream
+    lib.rmsnorm_launch.argtypes = [p, p, p, i, i, i, ctypes.c_float] + [i] * 5 + [p]
+
+
+LIBRARY = Library(CSRC / "rmsnorm.cu", _bind)
 
 
 def check_inputs(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -129,7 +114,7 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
     """RMSNorm of the rows of ``x (R, d)`` in ONE kernel launch."""
     global LAUNCHES
     check_inputs(x, scale)
-    lib = build()
+    lib = LIBRARY.on(x.device)
     R, d = x.shape
     y = torch.empty_like(x)
     if R:
@@ -143,6 +128,6 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
             )
         if err != 0:
             raise RuntimeError(f"rmsnorm launch failed: CUDA error {err}")
-        with _lock:
+        with LIBRARY.lock:
             LAUNCHES += 1
     return y

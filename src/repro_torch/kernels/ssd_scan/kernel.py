@@ -8,9 +8,13 @@ designs answer that.
 
 * **Build.**  At first use ``nvcc`` compiles the source for ``sm_90a`` into a
   shared library with a plain C interface under ``repro_torch/build/``,
-  loaded with ``ctypes`` (``kernels/build.py``).  ``ssd_init`` looks up the
-  tensor-map encoder and lifts the blocks' shared-memory limit once per
-  device.
+  loaded with ``ctypes`` (``LIBRARY``, a ``kernels/build.py::Library``).
+  ``ssd_init`` looks up the tensor-map encoder and lifts the blocks'
+  shared-memory limit once per device.
+* **Layout.**  Every kernel reads x and writes y (and the backward's dy and
+  dx) in the model's layout ``(B, S, nheads, P)``, as they lie; dt and ``da
+  = dt * A`` are ``(B nheads, S)`` float32, B and C ``(B, S, N)``, the final
+  state ``(B nheads, P, N)`` float32.
 * **Plan.**  ``ssd_plan`` is a pure function of the shapes and the card's
   SM count: the bfloat16 call's three kernels (chunk states, state passing,
   chunk outputs), each with the grid, threads and shared memory it is
@@ -18,11 +22,11 @@ designs answer that.
   address the tensors, and the temporaries.  The float32 call is one
   kernel, one block per (b, h).  The source refuses a plan whose threads or
   shared memory are not its kernels' own.
-* **Launch.**  ``ssd_scan_cuda`` checks its inputs (CUDA, contiguous, x, B
-  and C all bfloat16 or all float32, dt and da float32, ``P <= 64``, ``N <=
-  128``, the chunk at most 256 and dividing ``S``), allocates y, the final
-  state and the temporaries, launches the plan on the current stream and
-  raises on a non-zero CUDA error.  ``LAUNCHES`` counts the calls that
+* **Launch.**  ``ssd_scan_cuda`` checks its inputs (shapes, x, B and C all
+  bfloat16 or all float32, dt and da float32, ``P <= 64``, ``N <= 128``, the
+  chunk at most 256 and dividing ``S``, contiguous, and last CUDA),
+  allocates y, the final state and the temporaries, launches the plan on
+  the current stream and raises on a non-zero CUDA error.  ``LAUNCHES`` counts the calls that
   launch (three kernels a bfloat16 call, one a float32 call) and nothing
   else.
 * **Backward.**  ``ssd_scan_bwd_cuda`` takes the bfloat16 call's inputs, y's
@@ -37,21 +41,16 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from dataclasses import dataclass
-from typing import Optional, Set, Tuple
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import COMMON_FLAGS, CSRC, build_library
+from repro_torch.kernels.build import CSRC, Library
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-BUILD_SECONDS: Optional[float] = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
 
-SOURCE = CSRC / "ssd_scan.cu"
-NVCC_FLAGS = COMMON_FLAGS
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256  # csrc/ssd_scan.cu PP, NP, QMAX
 QTILES = 128     # query rows of a chunk-output block: two warpgroups of 64
@@ -69,10 +68,6 @@ _BW_SLOT = _TILE + MAX_CHUNK * _ROWB + 4 * _TILE
 BWD_PASS_SPLIT = 4  # csrc/ssd_scan.cu BP_SPLIT: blocks of a row in the reverse state pass
 KEYS_SMEM = 1024 + 2 * _TILE + 2 * MAX_CHUNK * _ROWB + 2 * _BW_SLOT + MAX_CHUNK * 4 + 64 * 4 + 24
 QUERIES_SMEM = KEYS_SMEM + 2 * 64 * 4 + 4 * 4
-
-_lock = threading.Lock()
-_lib = None
-_ready: Set[int] = set()  # devices whose smem limits ssd_init has lifted
 
 
 @dataclass(frozen=True)
@@ -166,63 +161,36 @@ def ssd_bwd_plan(BH: int, S: int, P: int, N: int, nheads: int, chunk: int, *,
     return SsdPlan(Q, chunks, nheads, tma and P % 8 == 0 and N % 8 == 0, stages, temporaries)
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per process and source) and load the kernel library."""
-    global _lib, BUILD_SECONDS, BUILD_LOG
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib, BUILD_SECONDS, log = build_library(SOURCE, NVCC_FLAGS)
-        BUILD_LOG = log or BUILD_LOG
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_init.restype = i
-        lib.ssd_init.argtypes = []
-        lib.ssd_scan_f32_launch.restype = i
-        # x dt da B C y state | BH S P N nheads chunk | plan stream
-        lib.ssd_scan_f32_launch.argtypes = [p] * 7 + [i] * 6 + [p, p]
-        lib.ssd_scan_bf16_launch.restype = i
-        # x dt da B C y state acs states entering rising | BH S P N nheads chunk
-        # group tma | plan stream
-        lib.ssd_scan_bf16_launch.argtypes = [p] * 11 + [i] * 8 + [p, p]
-        lib.ssd_scan_bwd_launch.restype = i
-        # pointers | BH S P N nheads chunk tma | plan stream
-        lib.ssd_scan_bwd_launch.argtypes = [p] + [i] * 7 + [p, p]
-        _lib = lib
-        return lib
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_f32_launch.restype = i
+    # x dt da B C y state | BH S P N nheads chunk | plan stream
+    lib.ssd_scan_f32_launch.argtypes = [p] * 7 + [i] * 6 + [p, p]
+    lib.ssd_scan_bf16_launch.restype = i
+    # x dt da B C y state acs states entering rising | BH S P N nheads chunk
+    # group tma | plan stream
+    lib.ssd_scan_bf16_launch.argtypes = [p] * 11 + [i] * 8 + [p, p]
+    lib.ssd_scan_bwd_launch.restype = i
+    # pointers | BH S P N nheads chunk tma | plan stream
+    lib.ssd_scan_bwd_launch.argtypes = [p] + [i] * 7 + [p, p]
 
 
-def _library(dev: torch.device) -> ctypes.CDLL:
-    lib = build()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _ready:
-        with _lock, torch.cuda.device(idx):
-            if idx not in _ready:
-                err = lib.ssd_init()
-                if err != 0:
-                    raise RuntimeError(f"ssd_scan kernel: ssd_init failed: CUDA error {err}")
-                _ready.add(idx)
-    return lib
+LIBRARY = Library(CSRC / "ssd_scan.cu", _bind, init="ssd_init", what="ssd_scan kernel")
 
 
-def check_inputs(x, dt, da, B_, C_, nheads: int, chunk: int, *, rows: bool = False) -> int:
-    """Validate what the kernel takes; returns the chunk length it runs.
-    x is (BH, S, P) for the forward, and (B, S, nheads, P) with ``rows``
-    (the backward, which reads the model's layout).  Raises ``ValueError``."""
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"ssd_scan kernel: tensors must be CUDA tensors, got {x.device} (the plain "
-            f"version is ref.ssd_scan_ref)"
-        )
-    layout = "(B, S, nheads, P)" if rows else "(BH, S, P)"
-    if x.dim() != (4 if rows else 3) or B_.dim() != 3 or C_.dim() != 3 or (
-            rows and x.shape[2] != nheads):
-        raise ValueError(f"ssd_scan kernel: x is {layout}, B and C are (B, S, N)")
-    BH, S, P = (x.shape[0] * nheads, x.shape[1], x.shape[3]) if rows else x.shape
-    Bb, S_b, N = B_.shape
-    if tuple(C_.shape) != (Bb, S_b, N) or S_b != S or Bb * nheads != BH:
+def check_inputs(x, dt, da, B_, C_, chunk: int) -> int:
+    """Validate the inputs both directions take, but for the device (each
+    entry checks that last, so that every refusal shows on CPU tensors);
+    returns the chunk length the kernels run.  x is (B, S, nheads, P), the
+    model's layout.  Raises ``ValueError``."""
+    if x.dim() != 4 or B_.dim() != 3 or C_.dim() != 3:
+        raise ValueError("ssd_scan kernel: x is (B, S, nheads, P), B and C are (B, S, N)")
+    Bb, S, nheads, P = x.shape
+    BH, N = Bb * nheads, B_.shape[-1]
+    if tuple(B_.shape) != (Bb, S, N) or tuple(C_.shape) != (Bb, S, N):
         raise ValueError(
             f"ssd_scan kernel: x {tuple(x.shape)}, B {tuple(B_.shape)}, C "
-            f"{tuple(C_.shape)} with {nheads} heads do not agree"
+            f"{tuple(C_.shape)} do not agree"
         )
     for name, t in (("dt", dt), ("da", da)):
         if t.dtype != torch.float32 or tuple(t.shape) != (BH, S):
@@ -249,17 +217,27 @@ def check_inputs(x, dt, da, B_, C_, nheads: int, chunk: int, *, rows: bool = Fal
     return Q
 
 
-def ssd_scan_cuda(x, dt, da, B_, C_, *, nheads: int, chunk: int):
-    """(y (BH, S, P) in x.dtype, final state (BH, P, N) float32): one kernel
-    for float32, the three of the plan for bfloat16.  The bfloat16 kernels
-    take L below the diagonal as two factors, each at most 1 where da <= 0
-    (csrc/ssd_scan.cu); with da > 0 a factor overflows only where the plain
-    version's own weight does, a_cs rising by more than 88 within a chunk."""
+def _cuda_only(x) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"ssd_scan kernel: tensors must be CUDA tensors, got {x.device} (the plain "
+            f"version is ref.ssd_scan_ref)"
+        )
+
+
+def ssd_scan_cuda(x, dt, da, B_, C_, *, chunk: int):
+    """(y (B, S, nheads, P) in x.dtype, final state (B nheads, P, N)
+    float32): one kernel for float32, the three of the plan for bfloat16.
+    The bfloat16 kernels take L below the diagonal as two factors, each at
+    most 1 where da <= 0 (csrc/ssd_scan.cu); with da > 0 a factor overflows
+    only where the plain version's own weight does, a_cs rising by more than
+    88 within a chunk."""
     global LAUNCHES
-    Q = check_inputs(x, dt, da, B_, C_, nheads, chunk)
-    lib = _library(x.device)
-    BH, S, P = x.shape
-    N = B_.shape[-1]
+    Q = check_inputs(x, dt, da, B_, C_, chunk)
+    _cuda_only(x)
+    lib = LIBRARY.on(x.device)
+    Bb, S, nheads, P = x.shape
+    BH, N = Bb * nheads, B_.shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, B_, C_))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = ssd_plan(BH, S, P, N, nheads, Q, x.dtype, sms, tma=aligned)
@@ -284,7 +262,7 @@ def ssd_scan_cuda(x, dt, da, B_, C_, *, nheads: int, chunk: int):
             )
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
-    with _lock:
+    with LIBRARY.lock:
         LAUNCHES += 1
     return y, state
 
@@ -294,16 +272,17 @@ def ssd_scan_bwd_cuda(x, dt, da, A, B_, C_, dy, dstate, *, chunk: int):
     final state's (``dstate`` (BH, P, N) float32, or ``None`` for zero).  x,
     dy and the returned dx lie in the model's layout (B, S, nheads, P); dt
     and ``da = dt * A`` as the forward took them, (BH, S) float32; A
-    (nheads,) float32.  Returns ``(dx, ddt (BH, S) float32, dA (nheads,)
+    (nheads,) float32, x's heads.  Returns ``(dx, ddt (BH, S) float32, dA (nheads,)
     float32, dB, dC (B, S, N))``: five kernels (``ssd_bwd_plan``); dA sums
     their per-chunk parts in a fixed order."""
     global BWD_LAUNCHES
-    if A.dim() != 1 or A.dtype != torch.float32 or not A.is_contiguous() or A.device != x.device:
-        raise ValueError("ssd_scan backward kernel: A must be a contiguous float32 (nheads,)")
-    nheads = A.shape[0]
-    Q = check_inputs(x, dt, da, B_, C_, nheads, chunk, rows=True)
-    Bb, S, _, P = x.shape
+    Q = check_inputs(x, dt, da, B_, C_, chunk)
+    Bb, S, nheads, P = x.shape
     BH, N = Bb * nheads, B_.shape[-1]
+    if (A.dim() != 1 or A.shape[0] != nheads or A.dtype != torch.float32
+            or not A.is_contiguous() or A.device != x.device):
+        raise ValueError(f"ssd_scan backward kernel: A must be a contiguous float32 "
+                         f"({nheads},), x's heads")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"ssd_scan backward kernel: bfloat16 only, got {x.dtype}")
     if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous() or dy.device != x.device:
@@ -313,7 +292,8 @@ def ssd_scan_bwd_cuda(x, dt, da, A, B_, C_, dy, dstate, *, chunk: int):
                                or not dstate.is_contiguous() or dstate.device != x.device):
         raise ValueError(f"ssd_scan backward kernel: dstate must be a contiguous float32 "
                          f"({BH}, {P}, {N}) or None")
-    lib = _library(x.device)
+    _cuda_only(x)
+    lib = LIBRARY.on(x.device)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, B_, C_))
     plan = ssd_bwd_plan(BH, S, P, N, nheads, Q, tma=aligned)
     dims = [n for st in plan.stages for n in (*st.grid, st.threads, st.smem)]
@@ -331,7 +311,7 @@ def ssd_scan_bwd_cuda(x, dt, da, A, B_, C_, dy, dstate, *, chunk: int):
         err = lib.ssd_scan_bwd_launch(ptrs, BH, S, P, N, nheads, Q, int(plan.tma), dims, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
-    with _lock:
+    with LIBRARY.lock:
         BWD_LAUNCHES += 1
     dA = parts.view(Bb, nheads, plan.chunks).sum(dim=(0, 2))
     return dx, ddt, dA, dB, dC

@@ -1,15 +1,16 @@
 """Public SSD-scan wrapper, as ``repro/kernels/ssd_scan/ops.py``.
 
 ``ssd_scan`` takes the model's ``(B, S, nh, P)`` layout, folds batch and
-heads into ``(B*nh, S, P)``, pre-scales ``da = dt * A`` and runs the chunked
-scan: the CUDA kernel (``kernel.py``) for CUDA tensors, which raises on what
-it does not take, and the plain version (``ref.ssd_scan_ref``) for CPU
-tensors; nothing falls back from one to the other.  The reference's kernel
-is a forward alone (JAX differentiates the plain ``ssd_chunked``); the SSM
-mixer trains through ``model/ssm.py::SSDScan``, whose backward on bfloat16
-CUDA tensors is :func:`ssd_scan_bwd`, the backward kernels
-(``kernel.ssd_scan_bwd_cuda``), and on the others the vjp of the plain
-``ssd_chunked``.
+heads of the step sizes into ``(B*nh, S)``, pre-scales ``da = dt * A`` and
+runs the chunked scan: the CUDA kernels (``kernel.py``) for CUDA tensors,
+which read x and write y in the model's layout and raise on what they do
+not take, and the plain version (``ref.ssd_scan_ref``, which takes x folded
+to ``(B*nh, S, P)``) for CPU tensors; nothing falls back from one to the
+other.  The reference's kernel is a forward alone (JAX differentiates the
+plain ``ssd_chunked``); the SSM mixer trains through
+``model/ssm.py::SSDScan``, whose backward on bfloat16 CUDA tensors is
+:func:`ssd_scan_bwd`, the backward kernels (``kernel.ssd_scan_bwd_cuda``),
+and on the others the vjp of the plain ``ssd_chunked``.
 
 On DTensors (:func:`on_shards`) batch and SSD heads may stay sharded; the
 sequence and the head dim are gathered first, and the inputs shared across a
@@ -57,17 +58,16 @@ def ssd_scan_local(
     """Returns ``(y (B, S, nh, P) in x.dtype, final_state (B, nh, P, N)
     float32)``."""
     B, S, nh, P = x.shape
-    xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
     f32 = torch.promote_types(x.dtype, torch.float32)  # float64 stays, for gradcheck
     dtf = dt.transpose(1, 2).reshape(B * nh, S).to(f32).contiguous()
     daf = dtf * A.to(f32).repeat(B)[:, None]
     if x.device.type == "cuda":
-        y, state = kernel.ssd_scan_cuda(
-            xf, dtf, daf, B_.contiguous(), C_.contiguous(), nheads=nh, chunk=chunk
-        )
+        y, state = kernel.ssd_scan_cuda(x.contiguous(), dtf, daf, B_.contiguous(),
+                                        C_.contiguous(), chunk=chunk)
     else:
+        xf = x.transpose(1, 2).reshape(B * nh, S, P).contiguous()
         y, state = ref.ssd_scan_ref(xf, dtf, daf, B_, C_, nheads=nh, chunk=chunk)
-    y = y.reshape(B, nh, S, P).transpose(1, 2)
+        y = y.reshape(B, nh, S, P).transpose(1, 2)
     return y, state.reshape(B, nh, P, state.shape[-1])
 
 

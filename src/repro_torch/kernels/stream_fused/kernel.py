@@ -17,16 +17,16 @@ kernel and how the design answers that.
   whose ``run`` has one statement per op, every parameter written as its bit
   pattern (``f32(0x...u)``), ending in the template's entry macro.
 * **Build.**  ``compile_program`` writes the source under
-  ``repro_torch/build/`` (named by its own hash) and builds it with
-  ``kernels/build.py::build_library`` (``nvcc``, ``sm_90a``,
-  ``--fmad=false``): the library's name hashes the generated source, the
-  template header and the flags, so a built program is loaded, not rebuilt.
-  The device runtime calls it when a partition is compiled
+  ``repro_torch/build/`` (named by its own hash) and builds it as a
+  ``kernels/build.py::Library`` (``nvcc``, ``sm_90a``, ``--fmad=false``):
+  the library's name hashes the generated source, the template header and
+  the flags, so a built program is loaded, not rebuilt.  The device runtime
+  calls it when a partition is compiled
   (``runtime/device_runtime.py::compile_partition``), off ``run()``'s
   clock; a failed build raises.  ``BUILDS`` records every program compiled
   for a device (plan, emit and the library's build or load, its start and
-  end on ``time.perf_counter``) and ``BUILD_LOG`` the ptxas report of each
-  library.
+  end on ``time.perf_counter``) and ``LIBRARIES`` each library by name,
+  with its ptxas report (``.log``).
 * **Launch.**  ``fused_stream_cuda`` checks its inputs, allocates the
   outputs, picks the grid (``launch_shape``: every SM a block at small N,
   groups of K a thread at large N) and launches on
@@ -47,12 +47,12 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import BUILD_DIR, COMMON_FLAGS, CSRC, build_library
+from repro_torch.kernels.build import BUILD_DIR, COMMON_FLAGS, CSRC, Library
 from repro_torch.kernels.stream_fused.ops import StreamProgram, block_unit
 
 LAUNCHES = 0
 BUILDS: List[Tuple[float, float, str]] = []  # (start, end, library) of every program compiled
-BUILD_LOG: Dict[str, str] = {}  # library name -> nvcc's -Xptxas -v report
+LIBRARIES: Dict[str, Library] = {}  # library name -> the generated program's library
 
 TEMPLATE = CSRC / "stream_fused.cuh"
 NVCC_FLAGS = (*COMMON_FLAGS, "--fmad=false")
@@ -256,31 +256,27 @@ class _Compiled:
 
 _lock = threading.Lock()
 _compiled: Dict[Tuple[int, torch.device], _Compiled] = {}
-_libraries: Dict[str, ctypes.CDLL] = {}
 
 
-def _build(source: str) -> Tuple[ctypes.CDLL, str]:
-    path = source_path(source)
-    with _lock:
-        lib = _libraries.get(path.name)
-    if lib is not None:
-        return lib, path.stem
-    path.parent.mkdir(parents=True, exist_ok=True)
-    if not path.exists():
-        tmp = path.with_suffix(f".{threading.get_ident()}.tmp")
-        tmp.write_text(source)
-        tmp.replace(path)
-    lib, _, log = build_library(path, NVCC_FLAGS)
+def _bind(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.stream_fused_launch.restype = i
     lib.stream_fused_launch.argtypes = [p, i, p, i, ctypes.c_longlong, i, i, i, i, p]
     lib.stream_fused_empty.restype = i
     lib.stream_fused_empty.argtypes = [i, i, p]
+
+
+def _build(source: str) -> Tuple[ctypes.CDLL, str]:
+    path = source_path(source)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if not path.exists():
+        tmp = path.with_suffix(f".{threading.get_ident()}.tmp")
+        tmp.write_text(source)
+        tmp.replace(path)
     with _lock:
-        _libraries[path.name] = lib
-        BUILD_LOG[path.stem] = log
-    return lib, path.stem
+        library = LIBRARIES.setdefault(path.stem, Library(path, _bind, flags=NVCC_FLAGS))
+    return library.build(), path.stem
 
 
 def compile_program(program: StreamProgram, device) -> _Compiled:

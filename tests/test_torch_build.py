@@ -8,6 +8,8 @@ import stat
 import sys
 from pathlib import Path
 
+import pytest
+
 from repro_torch.kernels import build
 from repro_torch.kernels.build import CSRC, local_sources, source_tag
 from repro_torch.kernels.stream_fused import StreamOp, StreamProgram
@@ -120,6 +122,54 @@ def test_build_library_renames_report_and_library_into_place(tmp_path, monkeypat
     assert lib.endswith(f"k_{source_tag(src, FLAGS)}.so")
     monkeypatch.setattr(build, "nvcc", lambda: "/nonexistent/nvcc")
     assert build.build_library(src, FLAGS)[2] == log
+
+
+class _FakeLib:
+    """What ``ctypes.CDLL`` returns, with an ``init`` entry that answers
+    ``err`` and counts its calls."""
+
+    def __init__(self, err=0):
+        self.calls = 0
+        self.err = err
+
+        def init():
+            self.calls += 1
+            return self.err
+
+        self.lib_init = init
+
+
+def test_library_builds_binds_and_inits_once(monkeypatch):
+    """``Library`` builds and binds once however often it is asked, keeps the
+    build's seconds and report, and runs ``init`` once per device; a failed
+    ``init`` raises with the module's name for the library and runs again on
+    the next call."""
+    import contextlib
+
+    fake, built, bound = _FakeLib(), [], []
+
+    def build_library(source, flags):
+        built.append((source, tuple(flags)))
+        return fake, 1.5, "ptxas info    : Used 30 registers\n"
+
+    monkeypatch.setattr(build, "build_library", build_library)
+    monkeypatch.setattr(build.torch.cuda, "device", lambda idx: contextlib.nullcontext())
+    lib = build.Library(CSRC / "quant.cu", bound.append, init="lib_init", what="quant kernel")
+    assert lib.build() is fake and lib.build() is fake
+    assert built == [(CSRC / "quant.cu", build.COMMON_FLAGS)] and bound == [fake]
+    assert lib.seconds == 1.5 and "Used 30 registers" in lib.log and fake.calls == 0
+    for _ in range(2):
+        assert lib.on(build.torch.device("cuda", 0)) is fake
+    assert fake.calls == 1
+    lib.on(build.torch.device("cuda", 1))
+    assert fake.calls == 2 and len(built) == 1
+    fake.err = 3
+    for calls in (3, 4):
+        with pytest.raises(RuntimeError, match="^quant kernel: lib_init failed: CUDA error 3$"):
+            lib.on(build.torch.device("cuda", 2))
+        assert fake.calls == calls
+    plain = build.Library(CSRC / "rmsnorm.cu", bound.append, flags=("-O3",))
+    assert plain.on(build.torch.device("cpu")) is fake and built[-1][1] == ("-O3",)
 
 
 def _smoke_main():

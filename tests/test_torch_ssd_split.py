@@ -190,17 +190,18 @@ def test_plan_covers_every_row_head_and_chunk_once(B, S, nh, P, N, chunk):
     assert states.grid == (BH * chunks, 1, 1)
     # stage 2: thread (bh, four of a padded 64 x 128 state)
     assert passing.grid[0] * passing.threads >= BH * 64 * 128 // 4
-    # stage 3: block (b * chunks + c, head group, pair of 64-row query tiles)
+    # stage 3: block (x, y, pair of 64-row query tiles), where y gx + x =
+    # (b * chunks + c) gy + head group: a chunk's head groups launch together
     seen = np.zeros((B, chunks, nh, Q), dtype=np.int64)
     gx, gy, gz = outputs.grid
-    for bx in range(gx):
-        b, c = divmod(bx, chunks)
-        for grp in range(gy):
-            heads = range(grp * plan.head_group, min(nh, (grp + 1) * plan.head_group))
-            for z in range(gz):
-                rows = range(128 * z, min(Q, 128 * z + 128))
-                for h in heads:
-                    seen[b, c, h, rows.start:rows.stop] += 1
+    assert gx == B * chunks
+    for lin in range(gx * gy):
+        (b, c), grp = divmod(lin // gy, chunks), lin % gy
+        heads = range(grp * plan.head_group, min(nh, (grp + 1) * plan.head_group))
+        for z in range(gz):
+            rows = range(128 * z, min(Q, 128 * z + 128))
+            for h in heads:
+                seen[b, c, h, rows.start:rows.stop] += 1
     assert (seen == 1).all()
     assert outputs.threads == 384
     shapes = {name: (shape, dtype) for name, shape, dtype in plan.temporaries}

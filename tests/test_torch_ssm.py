@@ -150,7 +150,53 @@ def test_kernel_path_refuses_autograd_and_never_falls_back():
     with torch.no_grad():
         ssd_scan(x4, dt, A, B_, C_, chunk=16)
     assert kernel.LAUNCHES == before
-    xf = x4.transpose(1, 2).reshape(2, 32, 16).contiguous()
     dtf = dt.transpose(1, 2).reshape(2, 32).contiguous()
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernel.ssd_scan_cuda(xf, dtf, dtf, B_, C_, nheads=2, chunk=16)
+        kernel.ssd_scan_cuda(x4, dtf, dtf, B_, C_, chunk=16)
+
+
+def _malformed(case):
+    """bf16 inputs of both kernel entries, in the model's layout but for
+    ``case``: (x, dt, da, A, B, C, dy)."""
+    x, dt, A, B_, C_ = (torch.from_numpy(a) for a in _ssd_inputs(2, 32, 3, 16, 8))
+    if case == "heads_of_A":  # the step sizes and A have another head count
+        A = torch.cat([A, A[:1]])
+        dt = torch.cat([dt, dt[..., :1]], dim=-1)
+    x, B_, C_ = x.to(torch.bfloat16), B_.to(torch.bfloat16), C_.to(torch.bfloat16)
+    B, S, nh = dt.shape
+    dtf = dt.transpose(1, 2).reshape(B * nh, S).contiguous()
+    daf = dtf * A.repeat(B)[:, None]
+    if case == "folded_x":
+        x = x.transpose(1, 2).reshape(-1, S, x.shape[-1]).contiguous()
+    elif case == "batch_of_B":
+        B_ = B_[:1].contiguous()
+    elif case == "dt_float64":
+        dtf = dtf.double()
+    return x, dtf, daf, A, B_, C_, x
+
+
+@pytest.mark.parametrize("entry", ["forward", "backward"])
+@pytest.mark.parametrize("case,said", [
+    ("folded_x", "x is \\(B, S, nheads, P\\)"),
+    ("heads_of_A", "dt must be float32"),
+    ("batch_of_B", "do not agree"),
+    ("dt_float64", "dt must be float32"),
+    ("well_formed", "CUDA tensors"),
+])
+def test_ssd_kernel_entries_refuse_the_same_inputs(entry, case, said):
+    """The forward and the backward kernel entries refuse the same malformed
+    inputs in the same check, before the device: a folded (B nh, S, P) x,
+    step sizes of A's head count where x has another, B of another batch, a
+    float64 dt; well-formed CPU inputs get as far as the device check."""
+    x, dtf, daf, A, B_, C_, dy = _malformed(case)
+    with pytest.raises(ValueError, match=said):
+        if entry == "forward":
+            kernel.ssd_scan_cuda(x, dtf, daf, B_, C_, chunk=16)
+        else:
+            kernel.ssd_scan_bwd_cuda(x, dtf, daf, A, B_, C_, dy, None, chunk=16)
+
+
+def test_ssd_backward_entry_holds_A_to_the_heads_of_x():
+    x, dtf, daf, A, B_, C_, dy = _malformed("well_formed")
+    with pytest.raises(ValueError, match="A must be a contiguous float32 \\(3,\\)"):
+        kernel.ssd_scan_bwd_cuda(x, dtf, daf, A[:2], B_, C_, dy, None, chunk=16)
